@@ -1,0 +1,631 @@
+"""Stage contexts: drive the witness manager callbacks into the executor.
+
+Port of ``ligero_prover_tpu.zkp.context`` (``zkp/nonbatch_context.hpp``'s
+four contexts).  Rows are queued (numpy limbs, or device rows from the
+vbn254fr arena) and flushed through the executor's batched pipelines.
+Every tensor is made by the executor (``zeros``, ``stack_batch``,
+``fetch``, ``sha_digests``), so this module holds no framework code.
+Queue flushing preserves SHA absorb order and exploits that the
+stage-2/verifier accumulators are order-independent field sums.
+
+Randomness draw order is preserved exactly: code/quadratic test scalars are
+drawn from their engines at row-arrival time (matching ``check_code`` /
+``check_quadratic`` call order in the reference), and encoding randomness
+is consumed inside the witness manager during row padding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..field import bn254 as F
+from ..field.limbs import ints_to_limbs
+from .backend import Backend
+from .witness import (STAGE1_POLICY, STAGE2_POLICY, STAGE3_POLICY,
+                      VERIFIER_POLICY, RandomPolicy)
+from .executor import TorchExecutor, NLIMB
+from ..params import NUM_CODE_TEST, NUM_LINEAR_TEST, NUM_QUADRATIC_TEST
+
+
+class ProofRejected(Exception):
+    """Raised when proof-supplied data is exhausted or malformed during
+    verifier re-execution — a protocol-level rejection, not a bug."""
+
+
+class _ContextBase:
+    """Owns the backend and wires manager callbacks."""
+
+    policy = None  # set by subclasses
+    # Whether on_batch_* hooks consume the row values (the verifier and the
+    # null context work from opened samples / nothing, so the vbn254fr
+    # module skips the device->host row transfer for them).
+    wants_batch_rows = True
+
+    def __init__(self, executor: TorchExecutor):
+        self.executor = executor
+        self.k = executor.k
+        self.n = executor.n
+
+    def _init_backend(self, l: int):
+        self.l = l
+        self.backend = Backend(l, self.k, self.policy)
+        m = self.backend.manager
+        m.linear_callback = self.linear_callback
+        m.quadratic_callback = self.quadratic_callback
+        m.mask_callback = self.mask_callback
+
+    def init_encoding_random(self, key: bytes, iv: bytes = bytes(16)):
+        self.backend.manager.encoding_random_engine.init(key, iv)
+        return self
+
+    def init_witness_random(self, key: bytes, iv: bytes = bytes(16)):
+        m = self.backend.manager
+        m.code_random_engine.init(key, iv)
+        m.linear_random_engine.init(key, iv)
+        m.quadratic_random_engine.init(key, iv)
+        return self
+
+    def linear_sums(self) -> int:
+        return self.backend.manager.constant_sum
+
+    def finalize(self):
+        self.backend.finalize()
+
+    # -- vbn254fr batch-row support (``nonbatch_context.hpp:497-553``) -----
+
+    def batch_encoding_tail(self) -> list[int] | None:
+        """Fresh encoding randomness for a batch row's [l, k) tail, drawn
+        from the same engine as witness-row padding; None when the policy
+        pads zeros (verifier)."""
+        m = self.backend.manager
+        if not m.policy.pad_encoding_random:
+            return None
+        return [F.generate_random(m.encoding_random_engine)
+                for _ in range(self.k - self.l)]
+
+
+def _to_limbs(row: list[int], width: int) -> np.ndarray:
+    arr = np.zeros((width, NLIMB), np.uint32)
+    ints_to_limbs(row, arr[:len(row)])
+    return arr
+
+
+def _pack_quads(bsz: int, tris, pairs):
+    """Pack triple/pair quadratic-check bookkeeping into fixed-shape arrays
+    (capacity = batch size: a flush of all bit-gates yields one triple per
+    row).  Zero scalars mask the padding."""
+    tri_idx = np.zeros((bsz, 3), np.int32)
+    tri_r = np.zeros((bsz, NLIMB), np.uint32)
+    for t, (ix, iy, iz, qr) in enumerate(tris):
+        tri_idx[t] = (ix, iy, iz)
+        tri_r[t] = qr
+    pair_idx = np.zeros((bsz, 2), np.int32)
+    pair_r = np.zeros((bsz, NLIMB), np.uint32)
+    for t, (ix, iy, qr) in enumerate(pairs):
+        pair_idx[t] = (ix, iy)
+        pair_r[t] = qr
+    return tri_idx, tri_r, pair_idx, pair_r
+
+
+class RowTape:
+    """Chunked record of every committed batch (stage-1 order).
+
+    Stage 3 draws the same encoding randomness as stage 1 and runs no
+    checks, so its row stream is a bit-exact replay of stage 1's — the
+    reference re-executes the whole program a third time only because it
+    refuses to store rows (``webgpu_prover.cpp:408``).  Recording the
+    already-built stage-1 batches (device tensors stay device-resident up
+    to `cap_bytes`, then spill to host numpy through `fetch`) lets the
+    prover skip the third interpreter execution entirely; see
+    ``prover._stage3_replay``.
+    """
+
+    def __init__(self, fetch, cap_bytes: int = 2 << 30):
+        self.chunks: list[tuple[int, int, object]] = []  # (width, cnt, batch)
+        self._fetch = fetch
+        self._device_bytes = 0
+        self._cap = cap_bytes
+
+    def append_batch(self, batch, cnt: int, width: int):
+        if not isinstance(batch, np.ndarray):
+            nbytes = int(np.prod(batch.shape)) * 4
+            if self._device_bytes + nbytes > self._cap:
+                batch = self._fetch(batch)             # spill (batched D2H)
+            else:
+                self._device_bytes += nbytes
+        self.chunks.append((width, cnt, batch))
+
+    def replay(self):
+        yield from self.chunks
+
+    def close(self):
+        self.chunks = []
+
+
+class Stage1Context(_ContextBase):
+    """Commit: encode every row, absorb codeword columns into n SHA states
+    (``nonbatch_context.hpp:393-581``)."""
+
+    policy = STAGE1_POLICY
+
+    def __init__(self, executor: TorchExecutor, l: int,
+                 row_tape: RowTape | None = None):
+        super().__init__(executor)
+        self._init_backend(l)
+        self.sha = executor.sha_init(executor.n)
+        self.rows_absorbed = 0
+        self.row_tape = row_tape
+        self._queue: list[np.ndarray] = []
+
+    # -- manager callbacks --
+    def linear_callback(self, row, rand):
+        self._push(row)
+
+    def quadratic_callback(self, vals, rands):
+        for i in range(3):
+            self._push(vals[i])
+
+    def mask_callback(self, code, linear, quad):
+        self._flush()
+        self._commit_2k_pair(code, linear, quad)
+
+    # -- batch hooks: commit rows in arrival order (context.hpp:497-553) --
+    def on_batch_init(self, row: np.ndarray):
+        self._push(row)
+
+    def on_batch_bit(self, row: np.ndarray):
+        self._push(row)
+
+    def on_batch_equal(self, rx: np.ndarray, ry: np.ndarray):
+        self._push(rx)
+        self._push(ry)
+
+    def on_batch_quadratic(self, rx, ry, rz):
+        self._push(rx)
+        self._push(ry)
+        self._push(rz)
+
+    def _push(self, row):
+        arr = row if not isinstance(row, list) else _to_limbs(row, self.k)
+        self._queue.append(arr)
+        if len(self._queue) >= self.executor.batch_rows:
+            self._flush()
+
+    def _flush(self):
+        if not self._queue:
+            return
+        cnt = len(self._queue)
+        batch = self.executor.stack_batch(self._queue,
+                                          self.executor.batch_rows, self.k)
+        self.sha = self.executor.commit_step(self.sha, batch, cnt)
+        if self.row_tape is not None:
+            self.row_tape.append_batch(batch, cnt, self.k)
+        self.rows_absorbed += cnt
+        self._queue = []
+
+    def _commit_2k_pair(self, code, linear, quad):
+        # code mask is a k-row; linear/quad masks are 2k rows.  Masks use
+        # dedicated 1/2-row batches (one extra, cheap-to-compile jit
+        # signature per geometry) instead of padding a full batch_rows
+        # encode for 1-3 rows (VERDICT r4 weak #5).
+        batch = _to_limbs(code, self.k)[None]
+        self.sha = self.executor.commit_step(self.sha, batch, 1)
+        batch2 = np.stack([_to_limbs(linear, 2 * self.k),
+                           _to_limbs(quad, 2 * self.k)])
+        self.sha = self.executor.commit_step(self.sha, batch2, 2,
+                                             width_2k=True)
+        if self.row_tape is not None:
+            self.row_tape.append_batch(batch, 1, self.k)
+            self.row_tape.append_batch(batch2, 2, 2 * self.k)
+        self.rows_absorbed += 3
+
+    def finalize(self):
+        super().finalize()   # flushes rows + masks through callbacks
+        self._flush()
+
+    def flush_digests(self) -> list[bytes]:
+        return self.executor.sha_digests(self.sha, self.rows_absorbed)
+
+
+class Stage2Context(_ContextBase):
+    """Checks: accumulate code/linear/quadratic test codewords
+    (``nonbatch_context.hpp:587-872``)."""
+
+    policy = STAGE2_POLICY
+
+    def __init__(self, executor: TorchExecutor, l: int):
+        super().__init__(executor)
+        self._init_backend(l)
+        z = executor.zeros((executor.n, NLIMB))
+        self.accs = (z, z, z)
+        self._rows: list[np.ndarray] = []
+        self._rands: list[np.ndarray | None] = []
+        self._code_rs: list[np.ndarray] = []
+        self._tris: list[tuple[int, int, int, np.ndarray]] = []
+        self._pairs: list[tuple[int, int, np.ndarray]] = []
+        self._zero_rands = None
+
+    def _draw_code_random(self) -> int:
+        m = self.backend.manager
+        r = 0
+        for _ in range(NUM_CODE_TEST):
+            r = m.generate_code_random()
+        return r
+
+    def _draw_quad_random(self) -> int:
+        m = self.backend.manager
+        r = 0
+        for _ in range(NUM_QUADRATIC_TEST):
+            r = m.generate_quadratic_random()
+        return r
+
+    def linear_callback(self, row, rand):
+        cr = self._draw_code_random()
+        self._enqueue_row(row, rand, cr)
+        self._maybe_flush()
+
+    def quadratic_callback(self, vals, rands):
+        base = len(self._rows)
+        if base + 3 > self.executor.batch_rows:
+            self._flush()
+            base = 0
+        crs = [self._draw_code_random() for _ in range(3)]
+        for i in range(3):
+            self._enqueue_row(vals[i], rands[i], crs[i])
+        qr = self._draw_quad_random()
+        self._tris.append((base, base + 1, base + 2,
+                           ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    # -- batch hooks (``nonbatch_context.hpp:782-847``): batch rows carry
+    # no linear-test randomness row; equal-gates land in the quadratic
+    # accumulator as r*(x - y), bit-gates as r*(x∘x - x).
+    def on_batch_init(self, row: np.ndarray):
+        cr = self._draw_code_random()
+        self._enqueue_row(row, None, cr)
+        self._maybe_flush()
+
+    def on_batch_bit(self, row: np.ndarray):
+        if len(self._rows) + 1 > self.executor.batch_rows:
+            self._flush()
+        i = len(self._rows)
+        cr = self._draw_code_random()
+        self._enqueue_row(row, None, cr)
+        qr = self._draw_quad_random()
+        self._tris.append((i, i, i, ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def on_batch_equal(self, rx: np.ndarray, ry: np.ndarray):
+        if len(self._rows) + 2 > self.executor.batch_rows:
+            self._flush()
+        base = len(self._rows)
+        self._enqueue_row(rx, None, 0)
+        self._enqueue_row(ry, None, 0)
+        qr = self._draw_quad_random()
+        self._pairs.append((base, base + 1, ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def on_batch_quadratic(self, rx, ry, rz):
+        if len(self._rows) + 3 > self.executor.batch_rows:
+            self._flush()
+        base = len(self._rows)
+        crs = [self._draw_code_random() for _ in range(3)]
+        for i, r in enumerate((rx, ry, rz)):
+            self._enqueue_row(r, None, crs[i])
+        qr = self._draw_quad_random()
+        self._tris.append((base, base + 1, base + 2,
+                           ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def _enqueue_row(self, row, rand, code_r: int):
+        self._rows.append(row if not isinstance(row, list)
+                          else _to_limbs(row, self.k))
+        self._rands.append(None if rand is None else _to_limbs(rand, self.k))
+        self._code_rs.append(ints_to_limbs([code_r])[0])
+
+    def _maybe_flush(self):
+        if len(self._rows) >= self.executor.batch_rows:
+            self._flush()
+
+    def _flush(self):
+        if not self._rows:
+            return
+        bsz = self.executor.batch_rows
+        code_rs = np.zeros((bsz, NLIMB), np.uint32)
+        cnt = len(self._rows)
+        rows = self.executor.stack_batch(self._rows, bsz, self.k)
+        rands_zero = all(r is None for r in self._rands)
+        if rands_zero:
+            # batch rows carry no randomness row: the pipeline's
+            # rands_zero variant skips the second encode, and one
+            # device-cached zeros buffer serves as the placeholder operand
+            if self._zero_rands is None:
+                self._zero_rands = self.executor.zeros((bsz, self.k, NLIMB))
+            rands = self._zero_rands
+        else:
+            rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
+            for i, r in enumerate(self._rands):
+                if r is not None:
+                    rands[i] = r
+        code_rs[:cnt] = np.stack(self._code_rs)
+        tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
+            bsz, self._tris, self._pairs)
+        self.accs = self.executor.check_step(
+            self.accs, rows, rands, code_rs, tri_idx, tri_r,
+            pair_idx, pair_r, rands_zero=rands_zero)
+        self._rows, self._rands, self._code_rs = [], [], []
+        self._tris, self._pairs = [], []
+
+    def mask_callback(self, code, linear, quad):
+        self._flush()
+        self.accs = self.executor.mask_step(
+            self.accs, _to_limbs(code, self.k),
+            _to_limbs(linear, 2 * self.k), _to_limbs(quad, 2 * self.k))
+
+    def finalize(self):
+        super().finalize()
+        self._flush()
+
+    def codewords(self):
+        """Returns (code, linear, quad) as (n, 8) numpy arrays."""
+        return tuple(self.executor.fetch(a) for a in self.accs)
+
+
+class Stage3Context(_ContextBase):
+    """Openings: gather the sampled columns of every row's codeword
+    (``nonbatch_context.hpp:878-1071``)."""
+
+    policy = STAGE3_POLICY
+
+    def __init__(self, executor: TorchExecutor, l: int,
+                 sample_index: list[int]):
+        super().__init__(executor)
+        self._init_backend(l)
+        self.sample_index = np.asarray(sample_index, np.int32)
+        self._queue: list[np.ndarray] = []
+        self.host_samplings: list[np.ndarray] = []  # (S, 8) per row, ordered
+
+    def linear_callback(self, row, rand):
+        self._push(row)
+
+    def quadratic_callback(self, vals, rands):
+        for i in range(3):
+            self._push(vals[i])
+
+    def mask_callback(self, code, linear, quad):
+        self._flush()
+        # dedicated 1-row open for the code mask (no full-batch padding)
+        batch1 = _to_limbs(code, self.k)[None]
+        out1 = self.executor.fetch(
+            self.executor.open_step(batch1, self.sample_index))
+        self.host_samplings.append(out1[0])
+        batch2 = np.stack([_to_limbs(linear, 2 * self.k),
+                           _to_limbs(quad, 2 * self.k)])
+        out = self.executor.open_step(batch2, self.sample_index,
+                                      width_2k=True)
+        arr = self.executor.fetch(out)
+        self.host_samplings.extend([arr[0], arr[1]])
+
+    # -- batch hooks (``nonbatch_context.hpp:996-1048``): sample each
+    # committed batch row like any witness row.
+    def on_batch_init(self, row: np.ndarray):
+        self._push(row, raw=True)
+
+    def on_batch_bit(self, row: np.ndarray):
+        self._push(row, raw=True)
+
+    def on_batch_equal(self, rx, ry):
+        self._push(rx, raw=True)
+        self._push(ry, raw=True)
+
+    def on_batch_quadratic(self, rx, ry, rz):
+        self._push(rx, raw=True)
+        self._push(ry, raw=True)
+        self._push(rz, raw=True)
+
+    def _push(self, row, raw=False):
+        self._queue.append(row if raw else _to_limbs(row, self.k))
+        if len(self._queue) >= self.executor.batch_rows:
+            self._flush()
+
+    def _flush(self):
+        if not self._queue:
+            return
+        cnt = len(self._queue)
+        batch = self.executor.stack_batch(self._queue,
+                                          self.executor.batch_rows, self.k)
+        out = self.executor.fetch(
+            self.executor.open_step(batch, self.sample_index))
+        self.host_samplings.extend(out[i] for i in range(cnt))
+        self._queue = []
+
+    def finalize(self):
+        super().finalize()
+        self._flush()
+
+    def samplings_u32(self) -> np.ndarray:
+        """Flat row-major sampled data: rows x S x 8 limbs."""
+        if not self.host_samplings:
+            return np.zeros(0, np.uint32)
+        return np.concatenate([s.reshape(-1) for s in self.host_samplings])
+
+
+class VerifierContext(_ContextBase):
+    """Re-execution with opened columns (``nonbatch_context.hpp:1081-1388``)."""
+
+    policy = VERIFIER_POLICY
+    wants_batch_rows = False
+
+    def __init__(self, executor: TorchExecutor, l: int,
+                 sample_index: list[int], host_samplings: np.ndarray):
+        super().__init__(executor)
+        self._init_backend(l)
+        self.sample_index = np.asarray(sample_index, np.int32)
+        self.S = len(sample_index)
+        self.sha = executor.sha_init(self.S)
+        self.rows_absorbed = 0
+        z = executor.zeros((self.S, NLIMB))
+        self.accs = (z, z, z)
+        self._pop = 0
+        if host_samplings.size % (self.S * NLIMB) != 0:
+            raise ProofRejected("opened-column data has invalid size")
+        self._proof_samples = host_samplings.reshape(-1, self.S, NLIMB)
+        self._samples: list[np.ndarray] = []
+        self._rands: list[np.ndarray] = []
+        self._code_rs: list[np.ndarray] = []
+        self._tris: list[tuple[int, int, int, np.ndarray]] = []
+        self._pairs: list[tuple[int, int, np.ndarray]] = []
+
+    def _pop_sample(self) -> np.ndarray:
+        if self._pop >= len(self._proof_samples):
+            raise ProofRejected("proof has too few opened rows")
+        s = self._proof_samples[self._pop]
+        self._pop += 1
+        return s
+
+    _draw_code_random = Stage2Context._draw_code_random
+    _draw_quad_random = Stage2Context._draw_quad_random
+
+    def linear_callback(self, row, rand):
+        cr = self._draw_code_random()
+        self._samples.append(self._pop_sample())
+        self._rands.append(_to_limbs(rand, self.k))
+        self._code_rs.append(ints_to_limbs([cr])[0])
+        self._maybe_flush()
+
+    def quadratic_callback(self, vals, rands):
+        base = len(self._samples)
+        if base + 3 > self.executor.batch_rows:
+            self._flush()
+            base = 0
+        crs = [self._draw_code_random() for _ in range(3)]
+        for i in range(3):
+            self._samples.append(self._pop_sample())
+            self._rands.append(_to_limbs(rands[i], self.k))
+            self._code_rs.append(ints_to_limbs([crs[i]])[0])
+        qr = self._draw_quad_random()
+        self._tris.append((base, base + 1, base + 2, ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def mask_callback(self, code, linear, quad):
+        self._flush()
+        ms = np.stack([self._pop_sample() for _ in range(3)])
+        self.sha, self.accs = self.executor.verify_mask_step(
+            self.sha, self.accs, ms)
+        self.rows_absorbed += 3
+
+    # -- batch hooks (``nonbatch_context.hpp:1306-1350``): the verifier
+    # replays batch checks directly on the popped sampled columns.
+    def _enqueue_batch_sample(self, code_r: int):
+        self._samples.append(self._pop_sample())
+        self._rands.append(np.zeros((self.k, NLIMB), np.uint32))
+        self._code_rs.append(ints_to_limbs([code_r])[0])
+
+    def on_batch_init(self, row=None):
+        cr = self._draw_code_random()
+        self._enqueue_batch_sample(cr)
+        self._maybe_flush()
+
+    def on_batch_bit(self, row=None):
+        if len(self._samples) + 1 > self.executor.batch_rows:
+            self._flush()
+        i = len(self._samples)
+        cr = self._draw_code_random()
+        self._enqueue_batch_sample(cr)
+        qr = self._draw_quad_random()
+        self._tris.append((i, i, i, ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def on_batch_equal(self, rx=None, ry=None):
+        if len(self._samples) + 2 > self.executor.batch_rows:
+            self._flush()
+        base = len(self._samples)
+        self._enqueue_batch_sample(0)
+        self._enqueue_batch_sample(0)
+        qr = self._draw_quad_random()
+        self._pairs.append((base, base + 1, ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def on_batch_quadratic(self, rx=None, ry=None, rz=None):
+        if len(self._samples) + 3 > self.executor.batch_rows:
+            self._flush()
+        base = len(self._samples)
+        for _ in range(3):
+            self._enqueue_batch_sample(self._draw_code_random())
+        qr = self._draw_quad_random()
+        self._tris.append((base, base + 1, base + 2,
+                           ints_to_limbs([qr])[0]))
+        self._maybe_flush()
+
+    def _maybe_flush(self):
+        if len(self._samples) >= self.executor.batch_rows:
+            self._flush()
+
+    def _flush(self):
+        if not self._samples:
+            return
+        bsz = self.executor.batch_rows
+        cnt = len(self._samples)
+        samples = np.zeros((bsz, self.S, NLIMB), np.uint32)
+        rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
+        code_rs = np.zeros((bsz, NLIMB), np.uint32)
+        samples[:cnt] = np.stack(self._samples)
+        rands[:cnt] = np.stack(self._rands)
+        code_rs[:cnt] = np.stack(self._code_rs)
+        tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
+            bsz, self._tris, self._pairs)
+        self.sha, self.accs = self.executor.verify_step(
+            self.sha, self.accs, samples, rands, code_rs, tri_idx, tri_r,
+            pair_idx, pair_r, self.sample_index, cnt)
+        self.rows_absorbed += cnt
+        self._samples, self._rands, self._code_rs = [], [], []
+        self._tris, self._pairs = [], []
+
+    def finalize(self):
+        super().finalize()
+        self._flush()
+
+    def flush_digests(self) -> list[bytes]:
+        return self.executor.sha_digests(self.sha, self.rows_absorbed)
+
+    def sampled_codewords(self):
+        return tuple(self.executor.fetch(a) for a in self.accs)
+
+
+class NullContext(_ContextBase):
+    """Execution-only context: runs the witness pipeline but discards rows.
+
+    Used for fast VM-conformance runs and dry executions (no device work,
+    no checks, deterministic zero padding).
+    """
+
+    policy = RandomPolicy(False, False, False, False)
+    wants_batch_rows = False
+
+    def __init__(self, k: int = 256, l: int | None = None):
+        self.executor = None
+        self.k = k
+        self.n = 4 * k
+        self._init_backend(l if l is not None else k - 192)
+        self.rows = 0
+
+    def linear_callback(self, row, rand):
+        self.rows += 1
+
+    def quadratic_callback(self, vals, rands):
+        self.rows += 3
+
+    def mask_callback(self, code, linear, quad):
+        self.rows += 3
+
+    def on_batch_init(self, row):
+        self.rows += 1
+
+    def on_batch_bit(self, row):
+        self.rows += 1
+
+    def on_batch_equal(self, rx, ry):
+        self.rows += 2
+
+    def on_batch_quadratic(self, rx, ry, rz):
+        self.rows += 3
