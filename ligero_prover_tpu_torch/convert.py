@@ -17,9 +17,14 @@ from .ops.fieldops import to_torch, to_numpy as _limbs_to_numpy
 
 def domain_tables_from_numpy(dom: dict, device=None) -> dict:
     """A ``build_domain_tables`` dict of the JAX package -> the port's
-    constant-geometry tables (``rev``, ``cg_fwd``, ``cg_inv``,
+    constant-geometry tables (``rev``, ``cg_fwd``, ``cg_inv``, their
+    (log2 n, 8, n/2) planar forms ``cg_fwd_pl``/``cg_inv_pl`` as the
+    reference's planar scans read them (``tw.T`` per stage), and
     ``n_inv_mont``)."""
-    return {
+    planar = {f"{key}_pl": to_torch(np.ascontiguousarray(
+        np.asarray(dom[key]).transpose(0, 2, 1)), device)
+        for key in ("cg_fwd", "cg_inv")}
+    return planar | {
         "rev": torch.from_numpy(
             np.asarray(dom["rev"]).astype(np.int64)).to(device),
         "cg_fwd": to_torch(np.asarray(dom["cg_fwd"]), device),

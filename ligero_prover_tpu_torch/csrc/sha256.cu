@@ -1,8 +1,10 @@
-// Column SHA-256 absorb for Hopper: kernel K3.
+// Column SHA-256 absorb for Hopper: kernel K3, in two layouts.
 //
 // Replaces the column absorb of the JAX package, which is XLA code, not a
 // Pallas kernel: _absorb_stream (ligero_prover_tpu/zkp/executor.py:43-65)
-// with sha256.transform (ligero_prover_tpu/ops/sha256.py:57-121).  Each of
+// with sha256.transform (ligero_prover_tpu/ops/sha256.py:57-121), and its
+// planar twin _absorb_stream_planar (executor.py:68-105), which reads
+// (8, B, C) limb-major codewords.  Each of
 // the C codeword columns carries its own SHA-256 state; a flush absorbs the
 // batch's rows in order, two 32-byte elements per 64-byte block.  A block's
 // 16 message words are the raw limbs of the two elements, no byte swap
@@ -20,8 +22,9 @@
 // fill 128 blocks of 256 threads, about one block per SM).  Design: one
 // thread per column, the 8-word state in registers across all of a flush's
 // blocks (so state never round-trips through memory between blocks), the
-// 64-round loop fully unrolled with a rotating 16-word schedule, rows read
-// as 16-byte vectors (a thread's element is 32 contiguous bytes).
+// 64-round loop fully unrolled with a rotating 16-word schedule.  AoS rows
+// are read as 16-byte vectors (a thread's element is 32 contiguous bytes);
+// planar rows as one word per limb plane, coalesced across the warp.
 
 #include <stdint.h>
 
@@ -79,8 +82,18 @@ LIGERO_HD void transform(uint32_t st[8], uint32_t w[16]) {
 }
 
 // Element j of the stream [pending, rows...] for column c, as 8 words.
+// rows is (B, C, 8) element-major, or (8, B, C) limb-major when kPlanar;
+// pending is always (C, 8).
+template <bool kPlanar>
 LIGERO_HD void load_elem(const uint32_t* pend, const uint32_t* rows,
-                         long long C, long long c, int j, uint32_t v[8]) {
+                         long long C, int B, long long c, int j,
+                         uint32_t v[8]) {
+  if (kPlanar && j > 0) {
+    const uint32_t* p = rows + (long long)(j - 1) * C + c;
+    const long long plane = (long long)B * C;
+    for (int i = 0; i < 8; ++i) v[i] = p[i * plane];
+    return;
+  }
   const uint32_t* p =
       j == 0 ? pend + c * 8 : rows + ((long long)(j - 1) * C + c) * 8;
 #ifdef __CUDACC__
@@ -94,6 +107,7 @@ LIGERO_HD void load_elem(const uint32_t* pend, const uint32_t* rows,
 
 // Absorb one column's share of a flush: `st` (8 words) in and out; the
 // new pending element goes to `pend_out` (8 words).
+template <bool kPlanar>
 LIGERO_HD void absorb_column(uint32_t st[8], const uint32_t* pend,
                              const uint32_t* rows, long long C, long long c,
                              int B, int has_pending, int valid_count,
@@ -103,13 +117,13 @@ LIGERO_HD void absorb_column(uint32_t st[8], const uint32_t* pend,
   int pairs = total / 2;
   for (int i = 0; i < pairs; ++i) {
     uint32_t w[16];
-    load_elem(pend, rows, C, c, start + 2 * i, w);
-    load_elem(pend, rows, C, c, start + 2 * i + 1, w + 8);
+    load_elem<kPlanar>(pend, rows, C, B, c, start + 2 * i, w);
+    load_elem<kPlanar>(pend, rows, C, B, c, start + 2 * i + 1, w + 8);
     transform(st, w);
   }
   int idx = start + 2 * pairs;
   idx = idx < 0 ? 0 : (idx > B ? B : idx);
-  load_elem(pend, rows, C, c, idx, pend_out);
+  load_elem<kPlanar>(pend, rows, C, B, c, idx, pend_out);
 }
 
 }  // namespace ligero_sha
@@ -118,6 +132,7 @@ LIGERO_HD void absorb_column(uint32_t st[8], const uint32_t* pend,
 
 namespace ligero_sha {
 
+template <bool kPlanar>
 __global__ void __launch_bounds__(256)
 absorb_kernel(const uint32_t* __restrict__ state_in,
               const uint32_t* __restrict__ pend_in,
@@ -130,7 +145,8 @@ absorb_kernel(const uint32_t* __restrict__ state_in,
   uint32_t st[8], v[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = state_in[i * C + c];
-  absorb_column(st, pend_in, rows, C, c, B, has_pending, valid_count, v);
+  absorb_column<kPlanar>(st, pend_in, rows, C, c, B, has_pending,
+                         valid_count, v);
   uint4* po = (uint4*)(pend_out + c * 8);
   po[0] = make_uint4(v[0], v[1], v[2], v[3]);
   po[1] = make_uint4(v[4], v[5], v[6], v[7]);
@@ -140,24 +156,34 @@ absorb_kernel(const uint32_t* __restrict__ state_in,
 
 }  // namespace ligero_sha
 
-// state: (8, C) u32, pending: (C, 8) u32, rows: (B, C, 8) u32; outputs
-// must not alias inputs.  pending/rows 16-byte aligned; 0 <= valid_count
-// <= B.  Returns cudaGetLastError().
+// state: (8, C) u32, pending: (C, 8) u32, rows: (B, C, 8) u32, or
+// (8, B, C) when `planar` is 1 (the planar codec's codewords, read with no
+// transpose); outputs must not alias inputs.  pending and AoS rows 16-byte
+// aligned; 0 <= valid_count <= B.  Returns cudaGetLastError().
 extern "C" int ligero_sha256_absorb(const void* state_in,
                                     const void* pending_in, const void* rows,
                                     void* state_out, void* pending_out,
                                     long long C, int B, int has_pending,
-                                    int valid_count, void* stream) {
+                                    int valid_count, int planar,
+                                    void* stream) {
   if (C <= 0) return 0;
   if (B < 0 || valid_count < 0 || valid_count > B ||
-      (has_pending != 0 && has_pending != 1))
+      (has_pending != 0 && has_pending != 1) || (planar != 0 && planar != 1))
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
   unsigned blocks = (unsigned)((C + threads - 1) / threads);
-  ligero_sha::absorb_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)state_in, (const uint32_t*)pending_in,
-      (const uint32_t*)rows, (uint32_t*)state_out, (uint32_t*)pending_out, C,
-      B, has_pending, valid_count);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* st = (const uint32_t*)state_in;
+  const uint32_t* pe = (const uint32_t*)pending_in;
+  const uint32_t* ro = (const uint32_t*)rows;
+  if (planar)
+    ligero_sha::absorb_kernel<true><<<blocks, threads, 0, s>>>(
+        st, pe, ro, (uint32_t*)state_out, (uint32_t*)pending_out, C, B,
+        has_pending, valid_count);
+  else
+    ligero_sha::absorb_kernel<false><<<blocks, threads, 0, s>>>(
+        st, pe, ro, (uint32_t*)state_out, (uint32_t*)pending_out, C, B,
+        has_pending, valid_count);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, never at import, and is keyed on a hash of the sources
-and flags: an edited source gets a new library name, and an unchanged one
-is loaded from ``build/`` without compiling.
+shared library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link.  The build
+runs at first use, never at import, and is keyed on a hash of the sources,
+headers and flags: an edited source gets a new library name, and an
+unchanged one is loaded from ``build/`` without compiling.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -34,8 +35,15 @@ SIGNATURES = {
     # x, y, out, n, y_rows, mode (0 = mont_mul, 1 = mulmod), stream
     "ligero_mont_mul": (_P, _P, _P, _I64, _I64, _I32, _P),
     # state_in, pending_in, rows, state_out, pending_out, C, B,
-    # has_pending, valid_count, stream
-    "ligero_sha256_absorb": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+    # has_pending, valid_count, planar (rows (8, B, C) instead of
+    # (B, C, 8)), stream
+    "ligero_sha256_absorb": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                             _I32, _P),
+    # x, tw, y, B, log2(N/2), in_n (DIT input width), dit, stream
+    "ligero_planar_stage": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
+    # x, x_limb_stride, y, y_limb_stride, y_div, out, n, mode
+    # (0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar), stream
+    "ligero_planar_eltwise": (_P, _I64, _P, _I64, _I64, _P, _I64, _I32, _P),
 }
 
 _lib = None
@@ -60,7 +68,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libligero_kernels_{h.hexdigest()[:16]}.so"
@@ -68,24 +76,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact source set is already built.
-    Records the compile time and ``ptxas`` report in :data:`build_info`."""
+    Records the wall time and the ``ptxas`` reports in :data:`build_info`."""
     out = library_path()
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    tmp_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in _sources():
+        obj = tmp_dir / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s.name, p.returncode, text) for s, p, text
+              in zip(_sources(), procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{text}" for name, rc, text in failed))
+    tmp = tmp_dir / out.name
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *[str(o) for o in objs]],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, log="".join(logs))
     return out
 
 

@@ -1,9 +1,15 @@
-"""Montgomery multiply kernels K1 (``mont_mul``) and K2 (``mulmod``).
+"""BN254-Fr field kernels: K1 (``mont_mul``) and K2 (``mulmod``) over AoS
+(..., 8) limbs, and the planar family over (8, ...) limb planes: KB (one
+constant-geometry butterfly stage, ``butterfly_dit``/``butterfly_dif``)
+and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
+``mulmod_planar``, ``mont_mul_scalar_planar``).
 
-Ports of the Pallas kernels ``_k_mont_mul`` and ``_k_mulmod``
-(``ligero_prover_tpu/ops/pallas/fieldmul.py:260,264``, reached through
-``mont_mul_aos`` / ``mulmod_aos``).  The CUDA source is
-``csrc/fieldmul.cu``; this module holds the wrappers and, beside each
+Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
+(``_k_mont_mul``/``_k_mulmod`` :260,264 through ``mont_mul_aos`` /
+``mulmod_aos``; ``_k_butterfly_dit``/``_dif`` :238,245; ``_k_addmod``,
+``_k_submod``, ``_k_mont_scalar`` :252,256,269 and the planar entries of
+:351-383).  The CUDA sources are ``csrc/fieldmul.cu`` and
+``csrc/planar.cu``; this module holds the wrappers and, beside each
 kernel, its plain PyTorch version.
 
 A wrapper runs the plain version only for a tensor on the CPU.  For a CUDA
@@ -12,10 +18,21 @@ there is no fallback.  The plain versions count their calls by device
 type in :data:`PLAIN_CALLS`, so a run can show that its main path never
 took them on the card.
 
-Both compute exactly the reference's algorithm, so results are bit
+All compute exactly the reference's algorithms, so results are bit
 identical on every input, including operands in [p, 2^256):
-  U = x*y (512 bits); m = U_lo*J mod 2^256 (J = -p^-1);
-  t = U_hi + (m*p)_hi + [U_lo != 0] mod 2^256; one conditional subtract p.
+  mont_mul: U = x*y (512 bits); m = U_lo*J mod 2^256 (J = -p^-1);
+            t = U_hi + (m*p)_hi + [U_lo != 0] mod 2^256; one conditional
+            subtract p.
+  addmod:   x + y mod 2^256, one conditional subtract p.
+  submod:   x - y mod 2^256, + p (mod 2^256) on borrow.
+
+The planar butterflies take a whole batch of rows per call.  Where the
+reference's ``butterfly_dit(a, b, w)`` returns the two halves of one
+stage, :func:`butterfly_dit` maps x (8, B, N) to the stage's output
+y (8, B, N); at B = 1, with x interleaving a and b (x[2j] = a[j],
+x[2j+1] = b[j]), y is the concatenation [s, d] of the reference's outputs.
+:func:`butterfly_dif` is the transpose: x = [a, b] gives y interleaving
+s and d.
 """
 
 from __future__ import annotations
@@ -28,12 +45,17 @@ import torch.nn.functional as nnf
 
 from ..field import bn254 as F
 from .. import kernels
+from . import fieldops as fo
 from .fieldops import MASK32, P_INTS, R2_LIMBS, NLIMB, _add, _cond_sub, \
     narrow, to_torch
 
-LAUNCHES = {"mont_mul": 0, "mulmod": 0}
-PLAIN_CALLS = {"mont_mul": Counter(), "mulmod": Counter()}  # by device type
-MODE = {"mont_mul": 0, "mulmod": 1}   # the C entry point's `mode` argument
+PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
+               "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
+STAGES = ("butterfly_dit", "butterfly_dif")
+LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
+                                 *PLANAR_MODE)}
+PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
+MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
 
 
 def reset_counts():
@@ -173,3 +195,233 @@ def mulmod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and y.device.type == "cpu":
         return mulmod_plain(x, y)
     return _launch("mulmod", x, y)
+
+
+# ---- planar family: plain versions ---------------------------------------
+#
+# Operands are (8, ...) int32 limb planes; a second operand broadcasts over
+# the trailing axes of the first (a (8, B, 1) per-row scalar over (8, B, n)
+# rows), as torch broadcasting aligns them.
+
+def _on_planes(fn, x, y):
+    """`fn`, a function of (..., 8) limbs, applied to (8, ...) planes."""
+    return fn(x.movedim(0, -1), y.movedim(0, -1)).movedim(-1, 0).contiguous()
+
+
+def _scalar_planes(s: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(8,) scalar limbs -> (8, 1, ..., 1) broadcasting over `ndim` dims."""
+    return s.reshape((NLIMB,) + (1,) * (ndim - 1))
+
+
+def addmod_planar_plain(x, y):
+    """Plain version of KE addmod: (x + y) mod p over limb planes."""
+    PLAIN_CALLS["addmod_planar"][x.device.type] += 1
+    return _on_planes(fo.addmod, x, y)
+
+
+def submod_planar_plain(x, y):
+    """Plain version of KE submod: (x - y) mod p over limb planes."""
+    PLAIN_CALLS["submod_planar"][x.device.type] += 1
+    return _on_planes(fo.submod, x, y)
+
+
+def mont_mul_planar_plain(x, y):
+    """Plain version of KE mont_mul: x*y*2^-256 mod p over limb planes."""
+    PLAIN_CALLS["mont_mul_planar"][x.device.type] += 1
+    return _on_planes(_mont_plain, x, y)
+
+
+def mulmod_planar_plain(x, y):
+    """Plain version of KE mulmod: x*y mod p over limb planes."""
+    PLAIN_CALLS["mulmod_planar"][x.device.type] += 1
+    r2 = _scalar_planes(to_torch(R2_LIMBS, x.device), x.dim())
+    return _on_planes(_mont_plain, _on_planes(_mont_plain, x, y), r2)
+
+
+def mont_mul_scalar_planar_plain(x, s):
+    """Plain version of KE mont_scalar: x*s*2^-256 mod p, s one (8,)
+    element."""
+    PLAIN_CALLS["mont_mul_scalar_planar"][x.device.type] += 1
+    return _on_planes(_mont_plain, x, _scalar_planes(s, x.dim()))
+
+
+def butterfly_dit_plain(x, tw):
+    """Plain version of KB, DIT: x (8, B, w) -> (8, B, N), N = 2*tw.shape[1];
+    a narrower x is tiled to N first (the zero-extension of the encode)."""
+    PLAIN_CALLS["butterfly_dit"][x.device.type] += 1
+    h = tw.shape[1]
+    if x.shape[2] != 2 * h:
+        x = x.repeat(1, 1, 2 * h // x.shape[2])
+    v = x.reshape(NLIMB, x.shape[1], h, 2)
+    a, b = v[..., 0], v[..., 1]
+    wb = _on_planes(_mont_plain, b, tw[:, None, :])
+    return torch.cat([_on_planes(fo.addmod, a, wb),
+                      _on_planes(fo.submod, a, wb)], dim=2)
+
+
+def butterfly_dif_plain(x, tw):
+    """Plain version of KB, DIF: x (8, B, N) -> (8, B, N)."""
+    PLAIN_CALLS["butterfly_dif"][x.device.type] += 1
+    h = tw.shape[1]
+    a, b = x[:, :, :h], x[:, :, h:]
+    s = _on_planes(fo.addmod, a, b)
+    d = _on_planes(_mont_plain, _on_planes(fo.submod, a, b), tw[:, None, :])
+    return torch.stack([s, d], dim=3).reshape(x.shape)
+
+
+# ---- planar family: kernel wrappers --------------------------------------
+
+def _check_operands(name: str, *ts: torch.Tensor):
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands must be CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.int32 for t in ts):
+        raise TypeError(f"{name}: operands must be int32 limbs")
+    if any(t.dim() < 1 or t.shape[0] != NLIMB for t in ts):
+        raise ValueError(f"{name}: operands must be (8, ...) limb planes, "
+                         f"got {[tuple(t.shape) for t in ts]}")
+
+
+def _with_plane_stride(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """`t` (8, ...) and its limb stride, such that limb l of element i is
+    at offset l*stride + i: each plane contiguous (a slice t[:, a:b] of a
+    contiguous tensor qualifies), else a contiguous copy."""
+    plane = t[0]
+    if plane.is_contiguous() and t.stride(0) >= max(plane.numel(), 1):
+        return t, t.stride(0)
+    t = t.contiguous()
+    return t, max(t[0].numel(), 1)
+
+
+def _y_div(name: str, xs, ys) -> int:
+    """How many consecutive elements of x share one element of y: y has
+    x's shape, except for trailing axes of size 1."""
+    if len(ys) != len(xs):
+        raise ValueError(f"{name}: operand shapes {tuple(xs)} and "
+                         f"{tuple(ys)} have different ranks")
+    d = next((i for i in range(1, len(xs)) if ys[i] != xs[i]), len(xs))
+    if any(v != 1 for v in ys[d:]):
+        raise ValueError(f"{name}: {tuple(ys)} does not broadcast over "
+                         f"trailing axes of {tuple(xs)}")
+    return max(math.prod(xs[d:]), 1)
+
+
+def eltwise_args(name: str, x: torch.Tensor, y: torch.Tensor):
+    """The operands that the KE wrapper `name` hands to
+    ``ligero_planar_eltwise``, after its checks: (x, x's limb stride, y,
+    y's limb stride, y_div, n elements).  x or y is a contiguous copy
+    where its planes are not contiguous."""
+    _check_operands(name, x, y)
+    x, x_ls = _with_plane_stride(x)
+    n = x[0].numel()
+    if name == "mont_mul_scalar_planar":
+        if y.numel() != NLIMB:
+            raise ValueError(f"{name}: the scalar must be 8 limbs, got "
+                             f"{tuple(y.shape)}")
+        return x, x_ls, y.reshape(NLIMB).contiguous(), 1, max(n, 1), n
+    y_div = _y_div(name, x.shape, y.shape)
+    y, y_ls = _with_plane_stride(y)
+    return x, x_ls, y, y_ls, y_div, n
+
+
+def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    x, x_ls, y, y_ls, y_div, n = eltwise_args(name, x, y)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    rc = kernels.lib().ligero_planar_eltwise(
+        x.data_ptr(), x_ls, y.data_ptr(), y_ls, y_div, out.data_ptr(), n,
+        PLANAR_MODE[name], kernels.stream_handle(x.device))
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _stage(name: str, x: torch.Tensor, tw: torch.Tensor,
+           out: torch.Tensor | None) -> torch.Tensor:
+    _check_operands(name, x, tw)
+    dit = name == "butterfly_dit"
+    if x.dim() != 3 or tw.dim() != 2:
+        raise ValueError(f"{name}: x must be (8, B, N) and tw (8, N/2), got "
+                         f"{tuple(x.shape)} and {tuple(tw.shape)}")
+    h, (b_, w) = tw.shape[1], x.shape[1:]
+    n = 2 * h
+    if h & (h - 1) or (w != n if not dit else
+                       (w < 2 or w & (w - 1) or w > n)):
+        raise ValueError(f"{name}: bad widths x {tuple(x.shape)}, tw "
+                         f"{tuple(tw.shape)}")
+    x, tw = x.contiguous(), tw.contiguous()
+    if out is None:
+        out = torch.empty((NLIMB, b_, n), dtype=torch.int32, device=x.device)
+    elif out.shape != (NLIMB, b_, n) or out.dtype != torch.int32 \
+            or out.device != x.device or not out.is_contiguous() \
+            or out.data_ptr() == x.data_ptr():
+        raise ValueError(f"{name}: `out` must be a contiguous int32 "
+                         f"(8, {b_}, {n}) tensor on {x.device}, apart "
+                         f"from x")
+    if x.data_ptr() % 8 or out.data_ptr() % 8:
+        raise ValueError(f"{name}: x and out must be 8-byte aligned")
+    rc = kernels.lib().ligero_planar_stage(
+        x.data_ptr(), tw.data_ptr(), out.data_ptr(), b_, h.bit_length() - 1,
+        w, int(dit), kernels.stream_handle(x.device))
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def butterfly_dit(x, tw, out=None):
+    """KB, DIT: one constant-geometry stage over a batch of rows.
+
+    x (8, B, w) bit-reversed-flow input, tw (8, N/2) the stage's twiddles
+    in Montgomery form, result (8, B, N) (written into `out` when given,
+    which must not be x).  w < N reads x tiled (zero-extension)."""
+    if _on_cpu(x, tw):
+        y = butterfly_dit_plain(x, tw)
+        return y if out is None else out.copy_(y)
+    return _stage("butterfly_dit", x, tw, out)
+
+
+def butterfly_dif(x, tw, out=None):
+    """KB, DIF: one constant-geometry stage, x (8, B, N) -> (8, B, N)."""
+    if _on_cpu(x, tw):
+        y = butterfly_dif_plain(x, tw)
+        return y if out is None else out.copy_(y)
+    return _stage("butterfly_dif", x, tw, out)
+
+
+def addmod_planar(x, y):
+    """KE: (x + y) mod p over limb planes (carry out of 2^256 dropped)."""
+    if _on_cpu(x, y):
+        return addmod_planar_plain(x, y)
+    return _eltwise("addmod_planar", x, y)
+
+
+def submod_planar(x, y):
+    """KE: (x - y) mod p over limb planes."""
+    if _on_cpu(x, y):
+        return submod_planar_plain(x, y)
+    return _eltwise("submod_planar", x, y)
+
+
+def mont_mul_planar(x, y):
+    """KE: x*y*2^-256 mod p over limb planes."""
+    if _on_cpu(x, y):
+        return mont_mul_planar_plain(x, y)
+    return _eltwise("mont_mul_planar", x, y)
+
+
+def mulmod_planar(x, y):
+    """KE: x*y mod p over limb planes."""
+    if _on_cpu(x, y):
+        return mulmod_planar_plain(x, y)
+    return _eltwise("mulmod_planar", x, y)
+
+
+def mont_mul_scalar_planar(x, s):
+    """KE: x*s*2^-256 mod p over limb planes, s one (8,) element."""
+    if _on_cpu(x, s):
+        return mont_mul_scalar_planar_plain(x, s)
+    return _eltwise("mont_mul_scalar_planar", x, s)

@@ -6,11 +6,16 @@ absorbed element is 32 bytes: its 8 little-endian u32 limbs, each
 serialized big-endian, so a block's 16 message words are exactly the raw
 limbs of two consecutive elements.
 
-:func:`absorb_stream` is the executor's flush: on CUDA tensors it launches
-``csrc/sha256.cu`` (K3, one thread per column), on CPU tensors it runs
-:func:`absorb_stream_plain`, the port of the reference's ``_absorb_stream``
-(``ligero_prover_tpu/zkp/executor.py:43-65``).  :func:`finalize` is plain
-torch on every device: it runs one block per proof.
+:func:`absorb_stream` is the executor's flush of (B, C, 8) rows: on CUDA
+tensors it launches ``csrc/sha256.cu`` (K3, one thread per column), on CPU
+tensors it runs :func:`absorb_stream_plain`, the port of the reference's
+``_absorb_stream`` (``ligero_prover_tpu/zkp/executor.py:43-65``).
+:func:`absorb_stream_planar` is the same flush of (8, B, C) limb-major
+codewords (the planar codec's output), the port of
+``_absorb_stream_planar`` (``executor.py:68-105``): the same kernel reads
+them in place, and :func:`absorb_stream_planar_plain` is its plain
+version.  :func:`finalize` is plain torch on every device: it runs one
+block per proof.
 
 Words are int32 bit patterns; the plain compression widens them to int64
 and masks to 32 bits after every add.
@@ -46,13 +51,14 @@ INIT_STATE = np.array([
 
 _K_INTS = [int(k) for k in K]
 
-LAUNCHES = {"sha256_absorb": 0}
-PLAIN_CALLS = {"sha256_absorb": Counter()}   # by device type
+LAUNCHES = {"sha256_absorb": 0, "sha256_absorb_planar": 0}
+PLAIN_CALLS = {name: Counter() for name in LAUNCHES}   # by device type
 
 
 def reset_counts():
-    LAUNCHES["sha256_absorb"] = 0
-    PLAIN_CALLS["sha256_absorb"].clear()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        PLAIN_CALLS[name].clear()
 
 
 def initial_state(num_cols: int, device=None) -> torch.Tensor:
@@ -86,13 +92,7 @@ def transform(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     return torch.stack(out).to(torch.int32)
 
 
-def absorb_stream_plain(state, pending, has_pending: bool, rows,
-                        valid_count: int):
-    """Plain version of K3.  Absorbs `valid_count` elements of `rows`
-    (B, C, 8) in order into the (8, C) column states, honoring a carried
-    unpaired element `pending` (C, 8).  Returns the new
-    (state, pending, has_pending)."""
-    PLAIN_CALLS["sha256_absorb"][rows.device.type] += 1
+def _absorb(state, pending, has_pending: bool, rows, valid_count: int):
     bsz = rows.shape[0]
     stream = torch.cat([pending[None], rows], dim=0)        # (B+1, C, 8)
     hp = int(bool(has_pending))
@@ -107,31 +107,49 @@ def absorb_stream_plain(state, pending, has_pending: bool, rows,
     return state, stream[idx].clone(), total % 2 == 1
 
 
+def absorb_stream_plain(state, pending, has_pending: bool, rows,
+                        valid_count: int):
+    """Plain version of K3.  Absorbs `valid_count` elements of `rows`
+    (B, C, 8) in order into the (8, C) column states, honoring a carried
+    unpaired element `pending` (C, 8).  Returns the new
+    (state, pending, has_pending)."""
+    PLAIN_CALLS["sha256_absorb"][rows.device.type] += 1
+    return _absorb(state, pending, has_pending, rows, valid_count)
+
+
+def absorb_stream_planar_plain(state, pending, has_pending: bool, cws,
+                               valid_count: int):
+    """Plain version of the planar K3 flush: :func:`absorb_stream_plain`
+    of the rows given as (8, B, C) limb planes; `pending` stays (C, 8)."""
+    PLAIN_CALLS["sha256_absorb_planar"][cws.device.type] += 1
+    return _absorb(state, pending, has_pending, cws.permute(1, 2, 0),
+                   valid_count)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def absorb_stream(state, pending, has_pending: bool, rows, valid_count: int):
-    """K3: column SHA-256 absorb of one flush (see absorb_stream_plain)."""
-    if rows.device.type == "cpu":
-        return absorb_stream_plain(state, pending, has_pending, rows,
-                                   valid_count)
+def _launch(name, state, pending, has_pending, rows, valid_count, planar):
     if rows.device.type != "cuda" or state.device != rows.device \
             or pending.device != rows.device:
-        raise ValueError("sha256_absorb: state, pending and rows must be "
-                         "CUDA tensors on one device")
-    bsz, cols = rows.shape[0], rows.shape[1]
-    if state.shape != (8, cols) or pending.shape != (cols, 8) \
-            or rows.shape[2] != 8:
-        raise ValueError(f"sha256_absorb: bad shapes {tuple(state.shape)}, "
+        raise ValueError(f"{name}: state, pending and rows must be CUDA "
+                         f"tensors on one device")
+    if rows.dim() != 3:
+        raise ValueError(f"{name}: rows must have 3 dimensions, got "
+                         f"{tuple(rows.shape)}")
+    limbs, bsz, cols = rows.shape if planar else \
+        (rows.shape[2], rows.shape[0], rows.shape[1])
+    if limbs != 8 or state.shape != (8, cols) or pending.shape != (cols, 8):
+        raise ValueError(f"{name}: bad shapes {tuple(state.shape)}, "
                          f"{tuple(pending.shape)}, {tuple(rows.shape)}")
     if not 0 <= valid_count <= bsz:
-        raise ValueError(f"sha256_absorb: valid_count {valid_count} "
-                         f"outside [0, {bsz}]")
+        raise ValueError(f"{name}: valid_count {valid_count} outside "
+                         f"[0, {bsz}]")
     for t in (state, pending, rows):
         if t.dtype != torch.int32:
-            raise TypeError("sha256_absorb: operands must be int32 words")
+            raise TypeError(f"{name}: operands must be int32 words")
     state, pending, rows = (_aligned(t) for t in (state, pending, rows))
     new_state = torch.empty_like(state)
     new_pending = torch.empty_like(pending)
@@ -139,10 +157,30 @@ def absorb_stream(state, pending, has_pending: bool, rows, valid_count: int):
     rc = kernels.lib().ligero_sha256_absorb(
         state.data_ptr(), pending.data_ptr(), rows.data_ptr(),
         new_state.data_ptr(), new_pending.data_ptr(), cols, bsz, hp,
-        int(valid_count), kernels.stream_handle(rows.device))
-    kernels.check(rc, "sha256_absorb")
-    LAUNCHES["sha256_absorb"] += 1
+        int(valid_count), int(planar), kernels.stream_handle(rows.device))
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
     return new_state, new_pending, (int(valid_count) + hp) % 2 == 1
+
+
+def absorb_stream(state, pending, has_pending: bool, rows, valid_count: int):
+    """K3: column SHA-256 absorb of one flush of (B, C, 8) rows (see
+    absorb_stream_plain)."""
+    if rows.device.type == "cpu":
+        return absorb_stream_plain(state, pending, has_pending, rows,
+                                   valid_count)
+    return _launch("sha256_absorb", state, pending, has_pending, rows,
+                   valid_count, planar=False)
+
+
+def absorb_stream_planar(state, pending, has_pending: bool, cws,
+                         valid_count: int):
+    """K3, planar: the same absorb of (8, B, C) limb-major codewords."""
+    if cws.device.type == "cpu":
+        return absorb_stream_planar_plain(state, pending, has_pending, cws,
+                                          valid_count)
+    return _launch("sha256_absorb_planar", state, pending, has_pending, cws,
+                   valid_count, planar=True)
 
 
 def finalize(state, pending, has_pending: bool, rows_absorbed: int):

@@ -1,8 +1,12 @@
 """Torch executor: batched stage pipelines on one device.
 
-Port of ``ligero_prover_tpu.zkp.executor`` (its AoS constant-geometry
-path).  The contexts queue rows on the host and flush them through one
-call per batch:
+Port of ``ligero_prover_tpu.zkp.executor``, in its two constant-geometry
+configurations: planar (limb-plane codewords, the KB/KE kernels and the
+planar SHA absorb; the default for CUDA tensors) and AoS (K1 plus plain
+limb arithmetic; the default for CPU tensors).  ``ops.ntt.USE_PLANAR``
+overrides the choice, which the executor resolves once when it is made.
+The contexts queue rows on the host and flush them through one call per
+batch:
 
 * ``commit_step``    — encode B rows + ordered SHA-256 column absorption
                        (stage 1 / the verifier's 192-column variant).
@@ -27,11 +31,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import fieldmul as fm
 from ..ops import fieldops as fo
 from ..ops import sha256 as tsha
-from ..ops.ntt import RSCodec, encode_rows_cg
+from ..ops.fieldops import R2_LIMBS
+from ..ops.ntt import RSCodec, _planar_use, decode_rows, encode_rows, \
+    encode_rows_cg, encode_rows_cg_planar_core
 
 NLIMB = 8
+_R2: dict = {}
+
+
+def _r2(device) -> torch.Tensor:
+    """R^2 mod p as (8,) limbs on `device`, made once per device."""
+    key = str(device)
+    if key not in _R2:
+        _R2[key] = fo.to_torch(R2_LIMBS, device)
+    return _R2[key]
 
 
 def _masked_sum(acc, terms):
@@ -42,7 +58,11 @@ def _masked_sum(acc, terms):
 
 
 def _commit_body(state, pending, has_pending, rows, valid_count,
-                 dom_msg, dom_n, n):
+                 dom_msg, dom_n, n, use_planar=False):
+    if use_planar:
+        cws = encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
+        return tsha.absorb_stream_planar(state, pending, has_pending, cws,
+                                         valid_count)
     cws = encode_rows_cg(rows, dom_msg, dom_n, n)
     return tsha.absorb_stream(state, pending, has_pending, cws, valid_count)
 
@@ -62,11 +82,73 @@ def _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r):
     return _masked_sum(quad, fo.mulmod(d, pair_r[:, None, :]))
 
 
+def _tree_sum_mod_planar(x):
+    """(8, B, n) -> (8, n) field sum over the row axis by pairwise folds
+    (reference ``executor.py:152-172``): log2(B) KE launches on halved
+    operands, read in place as plane slices; an odd count carries its
+    first row (`head`) to the next fold."""
+    while x.shape[1] > 1:
+        b = x.shape[1]
+        head = x[:, :1] if b % 2 else None
+        body = x[:, 1:] if b % 2 else x
+        h = body.shape[1] // 2
+        x = fm.addmod_planar(body[:, :h], body[:, h:])
+        if head is not None:
+            x = torch.cat([head, x], dim=1)
+    return x[:, 0]
+
+
+def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
+                       tri_r, pair_idx, pair_r, dom_k, dom_n, n,
+                       rands_zero=False):
+    """Planar stage-2 pipeline (reference ``executor.py:175-252``): the
+    codewords stay limb planes; each test is one KE launch per op over the
+    whole batch plus one tree sum.
+
+    Montgomery prescale: the per-row scalars are taken to s*R by one
+    mont_mul with R^2, so each big product is ONE mont_mul
+    (x * sR * R^-1 = x*s); the linear test (both operands plain) sums the
+    mont_mul products first and scales the (8, n) sum by R once."""
+    e = encode_rows_cg_planar_core(rows, dom_k, dom_n, n)     # (8, B, n)
+    r2 = _r2(e.device)
+
+    def scale_r(v):
+        return fm.mont_mul_scalar_planar(v, r2)
+
+    def planes(acc):
+        return acc.T.contiguous()                             # (n,8)->(8,n)
+
+    # code test: += sum_b e[b] * code_r[b]
+    cr_r = scale_r(code_rs.T.contiguous())                    # (8, B) * R
+    prods = fm.mont_mul_planar(e, cr_r[:, :, None])
+    code = fm.addmod_planar(planes(code), _tree_sum_mod_planar(prods))
+    # linear test: += sum_b e[b] * r[b]  (identity when rands are zero)
+    if not rands_zero:
+        r = encode_rows_cg_planar_core(rands, dom_k, dom_n, n)
+        lin = scale_r(_tree_sum_mod_planar(fm.mont_mul_planar(e, r)))
+        linear = fm.addmod_planar(planes(linear), lin).T.contiguous()
+    # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms, the
+    # triples and pairs concatenated into one product and one tree sum
+    ex, ey, ez = (e.index_select(1, tri_idx[:, i]) for i in range(3))
+    px, py = (e.index_select(1, pair_idx[:, i]) for i in range(2))
+    t_ = fm.submod_planar(fm.mulmod_planar(ex, ey), ez)       # (8, T, n)
+    d_ = fm.submod_planar(px, py)                             # (8, P, n)
+    scals = scale_r(torch.cat([tri_r, pair_r]).T.contiguous())   # (8, T+P)
+    prods = fm.mont_mul_planar(torch.cat([t_, d_], dim=1), scals[:, :, None])
+    quad = fm.addmod_planar(planes(quad), _tree_sum_mod_planar(prods))
+    return code.T.contiguous(), linear, quad.T.contiguous()
+
+
 def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
-                pair_idx, pair_r, dom_k, dom_n, n, rands_zero=False):
+                pair_idx, pair_r, dom_k, dom_n, n, use_planar=False,
+                rands_zero=False):
     """`rands_zero`: the flush carries only batch rows, which have no
     linear-test randomness rows; the second encode and the linear
     accumulation are identities on zeros and are skipped."""
+    if use_planar:
+        return _check_body_planar(code, linear, quad, rows, rands, code_rs,
+                                  tri_idx, tri_r, pair_idx, pair_r, dom_k,
+                                  dom_n, n, rands_zero)
     e = encode_rows_cg(rows, dom_k, dom_n, n)
     code = _masked_sum(code, fo.mulmod(e, code_rs[:, None, :]))
     if not rands_zero:
@@ -76,23 +158,33 @@ def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
     return code, linear, quad
 
 
-def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n):
-    code = fo.addmod(code, encode_rows_cg(cr[None], dom_k, dom_n, n)[0])
-    linear = fo.addmod(linear, encode_rows_cg(lr[None], dom_2k, dom_n, n)[0])
-    quad = fo.addmod(quad, encode_rows_cg(qr[None], dom_2k, dom_n, n)[0])
+def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n,
+               use_planar=False):
+    code = fo.addmod(code, encode_rows(cr[None], dom_k, dom_n, n,
+                                       use_planar)[0])
+    linear = fo.addmod(linear, encode_rows(lr[None], dom_2k, dom_n, n,
+                                           use_planar)[0])
+    quad = fo.addmod(quad, encode_rows(qr[None], dom_2k, dom_n, n,
+                                       use_planar)[0])
     return code, linear, quad
 
 
-def _open_body(rows, idx, dom_msg, dom_n, n):
+def _open_body(rows, idx, dom_msg, dom_n, n, use_planar=False):
+    """Encode (B, w, 8) rows and keep the sampled columns: (B, S, 8).  The
+    planar path gathers from the limb planes, so only the S sampled
+    columns are transposed back."""
+    if use_planar:
+        cws = encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
+        return cws.index_select(2, idx).movedim(0, -1).contiguous()
     return encode_rows_cg(rows, dom_msg, dom_n, n).index_select(1, idx)
 
 
 def _verify_body(state, pending, has_pending, code, linear, quad,
                  samples, rands, code_rs, tri_idx, tri_r, pair_idx, pair_r,
-                 idx, valid_count, dom_k, dom_n, n):
+                 idx, valid_count, dom_k, dom_n, n, use_planar=False):
     state, pending, has_pending = tsha.absorb_stream(
         state, pending, has_pending, samples, valid_count)
-    r = encode_rows_cg(rands, dom_k, dom_n, n).index_select(1, idx)
+    r = _open_body(rands, idx, dom_k, dom_n, n, use_planar)
     code = _masked_sum(code, fo.mulmod(samples, code_rs[:, None, :]))
     linear = _masked_sum(linear, fo.mulmod(samples, r))
     quad = _quad_contrib(quad, samples, tri_idx, tri_r, pair_idx, pair_r)
@@ -120,6 +212,7 @@ class TorchExecutor:
         self.k, self.n = k, n
         self.codec = RSCodec(k, n, self.device)
         self.batch_rows = batch_rows
+        self.use_planar = _planar_use(self.device)
 
     # ---- tensors ---------------------------------------------------------
 
@@ -169,7 +262,8 @@ class TorchExecutor:
         dom = self.codec.dom_2k if width_2k else self.codec.dom_k
         state, pending, has_pending = sha
         return _commit_body(state, pending, has_pending, self._limbs(rows),
-                            int(valid_count), dom, self.codec.dom_n, self.n)
+                            int(valid_count), dom, self.codec.dom_n, self.n,
+                            self.use_planar)
 
     # ---- stage 2: checks -------------------------------------------------
 
@@ -179,20 +273,21 @@ class TorchExecutor:
                            self._limbs(code_rs), self._index(tri_idx),
                            self._limbs(tri_r), self._index(pair_idx),
                            self._limbs(pair_r), self.codec.dom_k,
-                           self.codec.dom_n, self.n, rands_zero)
+                           self.codec.dom_n, self.n, self.use_planar,
+                           rands_zero)
 
     def mask_step(self, accs, code_row, linear_row, quad_row):
         return _mask_body(*accs, self._limbs(code_row),
                           self._limbs(linear_row), self._limbs(quad_row),
                           self.codec.dom_k, self.codec.dom_2k,
-                          self.codec.dom_n, self.n)
+                          self.codec.dom_n, self.n, self.use_planar)
 
     # ---- stage 3: openings ----------------------------------------------
 
     def open_step(self, rows, sample_idx, *, width_2k=False):
         dom = self.codec.dom_2k if width_2k else self.codec.dom_k
         return _open_body(self._limbs(rows), self._index(sample_idx), dom,
-                          self.codec.dom_n, self.n)
+                          self.codec.dom_n, self.n, self.use_planar)
 
     # ---- verifier --------------------------------------------------------
 
@@ -205,7 +300,7 @@ class TorchExecutor:
                            self._limbs(tri_r), self._index(pair_idx),
                            self._limbs(pair_r), self._index(sample_idx),
                            int(valid_count), self.codec.dom_k,
-                           self.codec.dom_n, self.n)
+                           self.codec.dom_n, self.n, self.use_planar)
         return (out[0], out[1], out[2]), (out[3], out[4], out[5])
 
     def verify_mask_step(self, sha, accs, mask_samples):
@@ -218,7 +313,8 @@ class TorchExecutor:
 
     def decode(self, codeword):
         """(n, 8) -> (n, 8) decoded (see ops.ntt.decode_rows_cg)."""
-        return self.codec.decode(self._limbs(codeword)[None])[0]
+        return decode_rows(self._limbs(codeword)[None], self.codec.dom_k,
+                           self.codec.dom_n, self.k, self.use_planar)[0]
 
     def sha_init(self, num_cols: int):
         return (tsha.initial_state(num_cols, self.device),

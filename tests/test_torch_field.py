@@ -109,8 +109,9 @@ def test_wrapper_dispatch_on_cpu_counts_no_launch():
     tfm.mont_mul(x, x)
     tfm.mulmod(x, x)
     tfm.mulmod(x, x)
-    assert tfm.LAUNCHES == {"mont_mul": 0, "mulmod": 0}
-    assert tfm.PLAIN_CALLS == {"mont_mul": {"cpu": 1}, "mulmod": {"cpu": 2}}
+    assert set(tfm.LAUNCHES.values()) == {0}
+    assert {k: v for k, v in tfm.PLAIN_CALLS.items() if v} == \
+        {"mont_mul": {"cpu": 1}, "mulmod": {"cpu": 2}}
     meta = torch.empty((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         tfm.mont_mul(meta, meta)

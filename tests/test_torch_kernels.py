@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod) and K3
-(column SHA-256 absorb) against their plain PyTorch versions, the golden
-Python-int model and hashlib; the executor and a whole proof on the card
-against the same on the CPU.  Every test here needs a CUDA device and
+"""The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod), K3
+(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly stages)
+and KE (planar element-wise ops) against their plain PyTorch versions, the
+golden Python-int model and hashlib; the executor (planar, the CUDA
+default, and AoS) and a whole proof on the card against the same on the
+CPU.  Every test here needs a CUDA device and
 skips without one.  This file imports no JAX, so it runs on a machine
 without it:
 
@@ -96,11 +98,13 @@ def test_sha_kernel_matches_plain_and_hashlib(cuda_device, schedule):
 
 
 def test_executor_steps_match_cpu(cuda_device):
+    """The CUDA default (planar) against the CPU default (AoS)."""
     from ligero_prover_tpu_torch import convert
     from ligero_prover_tpu_torch.zkp.executor import TorchExecutor
     k, n, b = 256, 1024, 8
     gpu, cpu = TorchExecutor(k, n, b, cuda_device), TorchExecutor(k, n, b,
                                                                   "cpu")
+    assert gpu.use_planar and not cpu.use_planar
     gen = np.random.default_rng(9)
     rows = rand_limbs(gen, (b, k))
     sha = gpu.sha_init(n)
@@ -134,3 +138,115 @@ def test_proof_bytes_match_cpu(cuda_device, monkeypatch):
     assert proofs[0].ok and proofs[0].proof == proofs[1].proof
     assert verify(prog, proofs[1].proof, geometry=geo,
                   device=cuda_device, batch_rows=8).ok
+
+
+def _planes(arr, device):
+    """(..., 8) uint32 limbs -> (8, ...) int32 limb planes on `device`."""
+    return to_t(np.moveaxis(arr, -1, 0).copy(), device)
+
+
+@pytest.mark.parametrize("name", list(tfm.PLANAR_MODE))
+def test_planar_eltwise_matches_plain(cuda_device, name):
+    gen = np.random.default_rng(len(name))
+    kernel, plain = getattr(tfm, name), getattr(tfm, name + "_plain")
+    base = _planes(rand_limbs(gen, (6, 1000), False), cuda_device)
+    edges = ints_to_limbs(NONCANONICAL + EDGES)
+    base[:, 0, :len(edges)] = _planes(edges, cuda_device)
+    if name == "mont_mul_scalar_planar":
+        ys = [_planes(rand_limbs(gen, (), c), cuda_device)
+              for c in (True, False)]
+        cases = [(base, y) for y in ys] + [(base[:, 2:5], ys[0])]
+    else:
+        full = _planes(rand_limbs(gen, (6, 1000), False), cuda_device)
+        full[:, 0, :len(edges)] = _planes(edges[::-1].copy(), cuda_device)
+        rows = _planes(rand_limbs(gen, (6, 1)), cuda_device)
+        cases = [(base, full),                     # same shape
+                 (base[:, 1:4], full[:, 2:5]),     # plane-stride views
+                 (base, rows),                     # one scalar per row
+                 (base[:, :, 7], full[:, :, 3])]   # strided: copied
+    before = tfm.LAUNCHES[name]
+    for x, y in cases:
+        got = kernel(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain(x.cpu(), y.cpu()))
+    assert tfm.LAUNCHES[name] == before + len(cases)
+
+
+@pytest.mark.parametrize("dit,b,w,h", [(True, 3, 2048, 1024),
+                                       (True, 2, 512, 1024),
+                                       (True, 1, 2, 4),
+                                       (False, 3, 2048, 1024)])
+def test_planar_stage_matches_plain(cuda_device, dit, b, w, h):
+    gen = np.random.default_rng(b * w + dit)
+    kernel = tfm.butterfly_dit if dit else tfm.butterfly_dif
+    plain = tfm.butterfly_dit_plain if dit else tfm.butterfly_dif_plain
+    x = _planes(rand_limbs(gen, (b, w), False), cuda_device)
+    tw = _planes(rand_limbs(gen, (h,)), cuda_device)
+    out = torch.empty((8, b, 2 * h), dtype=torch.int32, device=cuda_device)
+    before = tfm.LAUNCHES[kernel.__name__]
+    assert kernel(x, tw, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), plain(x.cpu(), tw.cpu()))
+    assert tfm.LAUNCHES[kernel.__name__] == before + 1
+
+
+def test_planar_kernels_reject_bad_operands(cuda_device):
+    x = torch.zeros((8, 4, 16), dtype=torch.int32, device=cuda_device)
+    tw = torch.zeros((8, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfm.addmod_planar(x, x.to(torch.int64))
+    with pytest.raises(ValueError):
+        tfm.submod_planar(x, x.cpu())
+    with pytest.raises(ValueError):                # not a trailing broadcast
+        tfm.mont_mul_planar(x, x[:, :1])
+    with pytest.raises(ValueError):                # DIF needs the full width
+        tfm.butterfly_dif(x[:, :, :8].contiguous(), tw)
+    with pytest.raises(ValueError):                # out may not be x
+        tfm.butterfly_dit(x, tw, out=x)
+    with pytest.raises(ValueError):
+        tfm.mont_mul_scalar_planar(x, x[:, 0])
+
+
+@pytest.mark.parametrize("schedule", [[5, 3, 1, 4, 5], [2, 0, 3, 5, 1]])
+def test_planar_sha_kernel_matches_plain(cuda_device, schedule):
+    gen = np.random.default_rng(sum(schedule) + 1)
+    cols, bsz = 4096 + 3, 5
+    k_st = (tsha.initial_state(cols, cuda_device),
+            torch.zeros((cols, 8), dtype=torch.int32, device=cuda_device),
+            False)
+    p_st = a_st = k_st
+    before = tsha.LAUNCHES["sha256_absorb_planar"]
+    for valid in schedule:
+        rows = to_t(rand_limbs(gen, (bsz, cols), canonical=False),
+                    cuda_device)
+        planes = rows.movedim(-1, 0).contiguous()
+        k_st = tsha.absorb_stream_planar(*k_st, planes, valid)
+        p_st = tsha.absorb_stream_planar_plain(*p_st, planes, valid)
+        a_st = tsha.absorb_stream(*a_st, rows, valid)
+        torch.cuda.synchronize()
+        for st in (p_st, a_st):
+            assert torch.equal(k_st[0], st[0])
+            assert torch.equal(k_st[1], st[1])
+            assert k_st[2] == st[2]
+    assert tsha.LAUNCHES["sha256_absorb_planar"] == before + len(schedule)
+
+
+def test_aos_executor_steps_match_cpu(cuda_device, monkeypatch):
+    """The AoS configuration stays selectable on the card."""
+    from ligero_prover_tpu_torch import convert
+    from ligero_prover_tpu_torch.ops import ntt
+    from ligero_prover_tpu_torch.zkp.executor import TorchExecutor
+    monkeypatch.setattr(ntt, "USE_PLANAR", False)
+    k, n, b = 256, 1024, 8
+    gpu, cpu = TorchExecutor(k, n, b, cuda_device), TorchExecutor(k, n, b,
+                                                                  "cpu")
+    assert not gpu.use_planar
+    gen = np.random.default_rng(19)
+    rows = rand_limbs(gen, (b, k))
+    got = gpu.commit_step(gpu.sha_init(n), rows, 5)
+    want = cpu.commit_step(cpu.sha_init(n), rows, 5)
+    for g, w in zip(convert.to_numpy(got), convert.to_numpy(want)):
+        np.testing.assert_array_equal(g, w)
+    cw = rand_limbs(gen, (n,))
+    np.testing.assert_array_equal(convert.to_numpy(gpu.decode(cw)),
+                                  convert.to_numpy(cpu.decode(cw)))

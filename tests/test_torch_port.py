@@ -46,8 +46,8 @@ def test_port_sources_import_no_jax():
     bad = re.compile(r"^\s*(import|from) (jax|ligero_prover_tpu)\b", re.M)
     hits = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
             if bad.search(p.read_text())]
-    hits += ["chip_smoke.py"] if bad.search(
-        (ROOT / "chip_smoke.py").read_text()) else []
+    hits += [script for script in ("chip_smoke.py", "profile_prove.py")
+             if bad.search((ROOT / script).read_text())]
     assert hits == []
 
 

@@ -59,6 +59,27 @@ def test_plain_absorb_and_finalize_match_reference(schedule):
         _hashlib_digests(np.concatenate(absorbed, axis=0))
 
 
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_planar_plain_absorb_matches_reference(schedule):
+    """The planar flush of (8, B, C) limb planes equals the reference's
+    absorb of the same rows as (B, C, 8), state and carry included."""
+    gen = np.random.default_rng(10 + sorted(SCHEDULES).index(schedule))
+    j_st = (jnp.asarray(jsha.initial_state(C)), jnp.zeros((C, 8), jnp.uint32),
+            jnp.asarray(False))
+    t_st = (tsha.initial_state(C), torch.zeros((C, 8), dtype=torch.int32),
+            False)
+    for valid in SCHEDULES[schedule]:
+        rows = rand_limbs(gen, (B, C), canonical=False)
+        j_st = j_absorb(*j_st, jnp.asarray(rows),
+                        jnp.asarray(valid, jnp.int32))
+        t_st = tsha.absorb_stream_planar(
+            *t_st, to_t(np.ascontiguousarray(rows.transpose(2, 0, 1))), valid)
+        want = convert.sha_from_numpy(j_st)
+        assert torch.equal(t_st[0], want[0])
+        assert torch.equal(t_st[1], want[1])
+        assert t_st[2] == want[2]
+
+
 def test_single_transform_matches_reference():
     gen = np.random.default_rng(7)
     state = gen.integers(0, 2 ** 32, (8, C), dtype=np.uint64).astype(np.uint32)
