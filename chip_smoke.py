@@ -6,13 +6,15 @@
 Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
 source, in parallel), checks each kernel against its plain PyTorch version
 at the shapes of the main path and times it, checks that small proofs made
-on the GPU in the planar and the AoS configuration are byte-identical to
-the same proofs made on the CPU, then drives both configurations through
-the port's ``prove``/``verify`` entry points at production geometry
-(k=8192, n=32768) on the vbn254fr Poseidon-style guest of
-``bench/e2e_prove.py``: the planar path (the CUDA default) at full depth,
-the AoS path at a reduced depth.  Each run counts the kernel launches it
-makes, from zero.  Any failure raises and exits non-zero; without a CUDA
+on the GPU in the planar and the AoS configuration, each with the butterfly
+and with the int8 encode engine, are byte-identical to the same proofs made
+on the CPU, then drives the configurations through the port's
+``prove``/``verify`` entry points at production geometry (k=8192, n=32768)
+on the vbn254fr Poseidon-style guest of ``bench/e2e_prove.py``: the planar
+butterfly path at full depth, the AoS path at a reduced depth, and the
+planar path with the int8 engine (``USE_MXU``) at full depth, whose proof
+must equal the butterfly path's byte for byte.  Each run counts the kernel
+launches it makes, from zero.  Any failure raises and exits non-zero; without a CUDA
 device it exits non-zero before doing anything.
 
 The last two lines of output are the kernel table as JSON and the result
@@ -57,9 +59,13 @@ ISSUE_PER_CLK = 128
 # products (x*y, the low half of U_lo*J, m*p); mulmod is two of them, a
 # butterfly one; add and sub need none (their ~24 integer operations per
 # element take under 1/20 of their bytes' time and are left out).
+# The renormalisation needs 8 products for the fold of bits [504, 528)
+# and 36 + 64 for its REDC; renorm_mid adds one Montgomery product.
 PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
             "butterfly_dif": 164, "mont_mul_planar": 164,
-            "mulmod_planar": 328, "mont_mul_scalar_planar": 164}
+            "mulmod_planar": 328, "mont_mul_scalar_planar": 164,
+            "mulmod_fma_planar": 328, "renorm_final": 108,
+            "renorm_pack": 108, "renorm_mid": 272}
 # One SHA-256 compression, each operation one instruction (a rotate one
 # funnel shift, a 3-input xor/choose/majority one LOP3, a 2- or 3-input add
 # one IADD3): 64 rounds of 14 (Sigma0, Sigma1: 4 each; Ch, Maj: 1 each;
@@ -67,6 +73,13 @@ PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
 # 8 state adds.
 SHA_OPS = {"sha256_absorb": 64 * 14 + 48 * 10 + 8,
            "sha256_absorb_planar": 64 * 14 + 48 * 10 + 8}
+# The signed byte sweep of a renormalisation: 66 steps of an add, a mask,
+# an arithmetic shift and a shift-or into the packed limb (5 operations);
+# the repack to signed digits 32 steps of 5 (extract, add, compare, fix,
+# insert).  Counted at the same rate as the SHA operations.
+SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + 32 * 5,
+             "renorm_mid": 66 * 5 + 32 * 5, "digitize": 32 * 5}
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 # mangled name fragment of each kernel's device function
 SASS_NAME = {
     "mont_mul": "mont_mul_kernelILi0E", "mulmod": "mont_mul_kernelILi1E",
@@ -78,6 +91,9 @@ SASS_NAME = {
     "mont_mul_planar": "eltwise_kernelILi2E",
     "mulmod_planar": "eltwise_kernelILi3E",
     "mont_mul_scalar_planar": "eltwise_kernelILi4E",
+    "mulmod_fma_planar": "eltwise_kernelILi5E",
+    "renorm_final": "renorm_kernelILi0E", "renorm_mid": "renorm_kernelILi1E",
+    "renorm_pack": "renorm_kernelILi2E", "digitize": "digitize_kernel",
 }
 
 
@@ -229,12 +245,14 @@ def sass_counts(lib_path) -> dict:
 def bound(name: str, nbytes: int, threads: int, iters: int = 1):
     """(least ms, what bounds it): the larger of the bytes over HBM
     bandwidth and the kernel's least integer work (``PRODUCTS`` at the
-    multiply-add rate, ``SHA_OPS`` at the issue rate) for `threads`
+    multiply-add rate, ``SHA_OPS`` and ``SWEEP_OPS`` at ``ISSUE_PER_CLK``)
+    for `threads`
     threads of `iters` iterations each."""
     rate = SMS * CARD["clock_hz"]
     work = threads * iters
     t_ops = max(PRODUCTS.get(name, 0) * work / (rate * IMAD_PER_CLK),
-                SHA_OPS.get(name, 0) * work / (rate * ISSUE_PER_CLK))
+                (SHA_OPS.get(name, 0) + SWEEP_OPS.get(name, 0)) * work
+                / (rate * ISSUE_PER_CLK))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
@@ -281,6 +299,18 @@ def report(results, name, label, err, times, plain_ms, bnd):
     require(err == 0, f"{name} {label} equals its plain version")
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def compare_cases(kernel, plain, cases) -> int:
+    """Largest difference between a wrapper and its plain version over
+    the argument tuples `cases`."""
+    import torch
+    err = 0
+    for args in cases:
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+    return err
 
 
 def check_aos_kernels(device, gen, lib, stream, results):
@@ -372,14 +402,6 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         return random_limbs(gen, shape, device, canonical) \
             .movedim(-1, 0).contiguous()
 
-    def compare(kernel, plain, cases):
-        err = 0
-        for args in cases:
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(got, want))
-        return err
-
     # KB: a DIT n-stage over (8, 16, n) and a DIF k-stage over (8, 16, k),
     # plus non-canonical operands; DIT also reads an (8, 16, k) input tiled
     # to n, as the first stage after the encode's zero-extension does
@@ -394,7 +416,7 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         cases = [(x, tw), (xw, tww)]
         if dit:
             cases.append((planes((bsz, k)), tw))
-        err = compare(kernel, plain, cases)
+        err = compare_cases(kernel, plain, cases)
         log2h = (width // 2).bit_length() - 1
         report(results, name, f"(8,{bsz},{width}) canonical and non-canonical"
                + (f", (8,{bsz},{k}) read tiled" if dit else ""), err,
@@ -433,8 +455,9 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         plain = getattr(fm, name + "_plain")
         scalar = name == "mont_mul_scalar_planar"
         x, y = main_call[name]
-        err = compare(kernel, plain, [(x, y), (rows, s if scalar else full),
-                                      (xw, sw if scalar else yw)])
+        err = compare_cases(kernel, plain,
+                            [(x, y), (rows, s if scalar else full),
+                             (xw, sw if scalar else yw)])
         xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
         require(xa.data_ptr() == x.data_ptr(),
                 f"{name} reads its first operand in place")
@@ -445,11 +468,29 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
                launches_ms(lambda xa, ya, out: kernels.check(
                    lib.ligero_planar_eltwise(
                        xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div,
-                       out.data_ptr(), size, mode, stream), name),
+                       None, 0, out.data_ptr(), size, mode, stream), name),
                    xa, ya, out),
                cuda_ms(lambda: plain(x, y), 3),
                # x read, out written, each y element read once
                bound(name, 64 * size + 4 * ya.numel(), size))
+
+    # KE mulmod_fma: acc + x*y on full (8, 16, n) operands; no caller on
+    # any path, so this is its only launch
+    acc = planes((bsz, n))
+    zw = planes((65536,), False)
+    err = compare_cases(fm.mulmod_fma_planar, fm.mulmod_fma_planar_plain,
+                        [(acc, rows, full), (zw, xw, yw)])
+    size = bsz * n
+    report(results, fm.FMA, f"(8,{bsz},{n}) + (8,{bsz},{n}) x same, and "
+           "(8,65536) non-canonical", err,
+           launches_ms(lambda xa, ya, za, out: kernels.check(
+               lib.ligero_planar_eltwise(
+                   xa.data_ptr(), size, ya.data_ptr(), size, 1,
+                   za.data_ptr(), size, out.data_ptr(), size, fm.FMA_MODE,
+                   stream), fm.FMA),
+               rows, full, acc, torch.empty_like(rows)),
+           cuda_ms(lambda: fm.mulmod_fma_planar_plain(acc, rows, full), 3),
+           bound(fm.FMA, 128 * size, size))
 
     # K3 on planar rows: the same two flushes as the AoS check, read as
     # (8, 16, n) codeword planes
@@ -480,6 +521,157 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
                  bsz // 2))
 
 
+def check_mxu_kernels(device, gen, lib, stream, results, k=FULL_K):
+    """KR (digitize, renorm_mid at both levels, renorm_final, renorm_pack)
+    at the calls of one 16-row k -> n encode through the int8 engine, on
+    real slots (the level products of random canonical rows and the built
+    tables), on an extreme set (every input digit +127, the largest V the
+    contract allows, or -128, and all-zero slots) and with the twiddle
+    table read by index; then the whole encode against the butterfly
+    encode.  The three level products are library calls, timed beside."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import mxu_ntt as mx, mxu_renorm as mr, \
+        ntt
+
+    n, bsz = 4 * k, 16
+    codec = ntt.RSCodec(k, n, device)
+    t0 = time.perf_counter()
+    tabs = codec.mxu_tabs
+    torch.cuda.synchronize()
+    CARD["mxu_table_s"] = time.perf_counter() - t0
+    r1, c1, r2, c2, _ = tabs["geom"]
+    log(f"phase 3: int8 engine tables for k={k}: geometry {tabs['geom']}, "
+        f"built in {CARD['mxu_table_s']:.2f}s, "
+        f"{ {key: tuple(tabs[key].shape) for key in mx.TABLE_KEYS} }")
+
+    def renorm_launch(name, tw_args):
+        """The C entry point on (slots, out) or, with a twiddle table
+        read at `tw_args` = (tw_bc, tw_c), on (slots, tw, out)."""
+        mode = mr.RENORM_MODE[name]
+
+        def launch(slots, *rest):
+            tw, out = (None, *rest) if len(rest) == 1 else rest
+            kernels.check(lib.ligero_renorm(
+                slots.data_ptr(), None if tw is None else tw.data_ptr(),
+                0 if tw is None else tw[0].numel(), *tw_args,
+                out.data_ptr(), slots[0].numel(), mode, stream), name)
+        return launch
+
+    def extremes(shape):
+        """Packed digit operands of `shape`: every digit +127, -128."""
+        return [torch.full(shape, word, dtype=torch.int32, device=device)
+                for word in (0x7F7F7F7F, -0x7F7F7F80)]
+
+    def slot_sets(level, real):
+        """Slots of `real` and of the extreme operands through one level
+        product, and all-zero slots, each copied out of the engine's
+        buffer."""
+        sets = [level(p, tabs).clone()
+                for p in [real] + extremes(tuple(real.shape))]
+        return sets + [torch.zeros_like(sets[0])]
+
+    def check_renorm(name, sets, tw, nbytes):
+        """(err over `sets`, (cold, hot) ms, plain ms, bound) of one KR
+        mode, timed on the first set."""
+        kernel, plain = getattr(mr, name), getattr(mr, name + "_plain")
+        extra = () if tw is None else (tw,)
+        err = compare_cases(kernel, plain, [(s, *extra) for s in sets])
+        slots = sets[0]
+        tw_args = (1, 1) if tw is None else mr.twiddle_index(
+            name, slots.shape[1:], tw.shape[1:])
+        out = torch.empty((8,) + slots.shape[1:], dtype=torch.int32,
+                          device=device)
+        times = launches_ms(renorm_launch(name, tw_args), slots, *extra, out)
+        plain_ms = cuda_ms(lambda: plain(slots, *extra), 3)
+        return err, times, plain_ms, bound(name, nbytes, slots[0].numel())
+
+    rows = random_limbs(gen, (bsz, k), device, True)
+    x = rows.movedim(-1, 0).contiguous()                   # (8, 16, k)
+    edge = edge_limbs(device)[:4].T                        # 0, 1, p-1, R
+    x[:, 0, :4] = edge
+    err = compare_cases(mr.digitize, mr.digitize_plain, [(x,)])
+    report(results, "digitize", f"(8,{bsz}*{k}) canonical with edge values",
+           err,
+           launches_ms(lambda a, out: kernels.check(lib.ligero_digitize(
+               a.data_ptr(), out.data_ptr(), a[0].numel(), stream),
+               "digitize"), x, torch.empty_like(x)),
+           cuda_ms(lambda: mr.digitize_plain(x), 3),
+           bound("digitize", 64 * bsz * k, bsz * k))
+
+    xp = mr.digitize(x).view(8, bsz, r1, c1)
+    # level 1: (64, r1*16*c1) slots, tw1 (8, r1, 1, c1) read by index
+    sets1 = slot_sets(mx.level1_slots, xp)
+    x1 = sets1[0][0].numel()
+    tw1, tw3 = tabs["tw1"], tabs["tw3"]
+    e1 = check_renorm("renorm_mid", sets1, tw1,
+                      288 * x1 + 4 * tw1.numel())
+    e1 = (max(e1[0], compare_cases(
+        mr.renorm_mid, mr.renorm_mid_plain,
+        [(sets1[0], tw1.expand(8, r1, bsz, c1).contiguous())])), *e1[1:])
+    log(f"phase 3: renorm_mid (64,{x1}) x tw1 {tuple(tw1.shape)} by index "
+        f"and broadcast, real/+127/-128/zero slots: max_abs_err={e1[0]} "
+        f"kernel_ms={e1[1][0]:.4f} (same buffers: {e1[1][1]:.4f}) "
+        f"plain_ms={e1[2]:.4f} bound_ms={e1[3][0]:.4f} ({e1[3][1]})")
+    require(e1[0] == 0, "renorm_mid at level 1 equals its plain version")
+    CARD["renorm_mid_level1"] = {"ms": e1[1][0], "bound_ms": e1[3][0]}
+    b1 = mr.renorm_mid(sets1[0], tw1)
+    del sets1
+    # level 2: (64, r2*16*c2) slots, tw3 (8, r2, 1, c2) read by index
+    sets2 = slot_sets(mx.level2_slots, b1)
+    x2 = sets2[0][0].numel()
+    e2 = check_renorm("renorm_mid", sets2, tw3,
+                      288 * x2 + 4 * tw3.numel())
+    report(results, "renorm_mid", f"(64,{x2}) x tw3 {tuple(tw3.shape)} by "
+           "index, real/+127/-128/zero slots", *e2)
+    a2 = mr.renorm_mid(sets2[0], tw3)
+    del sets2
+    # level 3: (64, c2*16*r2) slots -> canonical limbs, or packed digits
+    sets3 = slot_sets(mx.level3_slots, a2)
+    for name in ("renorm_final", "renorm_pack"):
+        report(results, name, f"(64,{x2}) real/+127/-128/zero slots",
+               *check_renorm(name, sets3, None, 288 * x2))
+    got = mr.renorm_final(sets3[0]).transpose(1, 2).reshape(8, bsz, n)
+    del sets3
+
+    # the whole encode, limb for limb
+    rows_aos = x.movedim(0, -1).contiguous()
+    want = ntt.encode_rows_cg_planar_core(rows_aos, codec.dom_k, codec.dom_n,
+                                          n)
+    enc = mx.encode_rows_mxu_core(rows_aos, tabs, n)
+    torch.cuda.synchronize()
+    same = torch.equal(enc, want) and torch.equal(got, want)
+    enc_ms = cuda_ms(lambda: mx.encode_rows_mxu_core(rows_aos, tabs, n), 10)
+    cg_ms = cuda_ms(lambda: ntt.encode_rows_cg_planar_core(
+        rows_aos, codec.dom_k, codec.dom_n, n), 10)
+    log(f"phase 3: 16-row k={k} encode, int8 engine == butterflies limb for "
+        f"limb: {same}; by CUDA events {enc_ms:.4f} ms against {cg_ms:.4f} "
+        f"ms; tables and slot buffer {mx.table_bytes(tabs)} bytes")
+    require(same, "the int8 engine's encode equals the butterfly encode")
+
+    # the level products (library) as the engine calls them, second
+    # operand column-major, beside the same product on a row-major copy,
+    # and the layout copy that makes the operand
+    buf = tabs["slots"]
+    for label, w, packed, turn in (("level 1", tabs["w1"],
+                                    xp.transpose(1, 2), False),
+                                   ("middle", tabs["wm"], b1, True),
+                                   ("level 3", tabs["w4"], a2, True)):
+        xd = mx._digit_operand(packed, turn)               # (cols, 32*R)
+        row_major = xd.t().contiguous()
+        m, kk, cols = w.shape[0], w.shape[1], xd.shape[0]
+        out = buf[:m * cols].view(m, cols)
+        mm_ms = cuda_ms(lambda: torch._int_mm(w, xd.t(), out=out), 20)
+        rm_ms = cuda_ms(lambda: torch._int_mm(w, row_major, out=out), 20)
+        cp_ms = cuda_ms(lambda: mx._digit_operand(packed, turn), 20)
+        ops = 2.0 * m * kk * cols
+        log(f"phase 3: {label} product torch._int_mm ({m},{kk})@({kk},{cols})"
+            f": {mm_ms:.4f} ms, {ops / mm_ms / 1e9:.1f} TOP/s, "
+            f"{100 * ops / (mm_ms * 1e-3) / INT8_OPS_PER_S:.1f}% of the "
+            f"dense int8 rate (second operand row-major: {rm_ms:.4f} ms); "
+            f"digit operand copy {cp_ms:.4f} ms")
+
+
 def check_kernels(device) -> dict:
     import numpy as np
     from ligero_prover_tpu_torch import kernels
@@ -488,6 +680,7 @@ def check_kernels(device) -> dict:
     results = {}
     check_aos_kernels(device, gen, lib, stream, results)
     check_planar_kernels(device, gen, lib, stream, results)
+    check_mxu_kernels(device, gen, lib, stream, results)
     return results
 
 
@@ -499,21 +692,23 @@ def wat_program(src, args=()):
 
 
 @contextlib.contextmanager
-def configuration(planar):
-    """Select the planar or the AoS path (``ops.ntt.USE_PLANAR``) for the
+def configuration(planar, mxu=False):
+    """Select the planar or the AoS path (``ops.ntt.USE_PLANAR``) and the
+    butterfly or the int8 encode engine (``ops.ntt.USE_MXU``) for the
     executors made inside the block; None is the per-device default."""
     from ligero_prover_tpu_torch.ops import ntt
-    ntt.USE_PLANAR = planar
+    ntt.USE_PLANAR, ntt.USE_MXU = planar, mxu
     try:
         yield
     finally:
-        ntt.USE_PLANAR = None
+        ntt.USE_PLANAR = ntt.USE_MXU = None
 
 
 def check_small_proofs(device):
-    """CUDA planar == CUDA AoS == CPU proof bytes at k=256, for the vbn254fr
-    guest (batch rows only) and for a guest with witness rows (linear and
-    quadratic callback rows: the planar check's linear branch)."""
+    """CUDA planar == CUDA AoS == both with the int8 engine == CPU proof
+    bytes at k=256, for the vbn254fr guest (batch rows only) and for a
+    guest with witness rows (linear and quadratic callback rows: the planar
+    check's linear branch and a second encode per flush)."""
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.prover import prove
     from ligero_prover_tpu_torch.verifier import verify
@@ -525,20 +720,25 @@ def check_small_proofs(device):
     try:
         for name, prog in programs.items():
             proofs = {}
-            for label, dev, planar in (("cuda planar", device, True),
-                                       ("cuda aos", device, False),
-                                       ("cpu", "cpu", None)):
-                with configuration(planar):
+            for label, dev, planar, mxu in (
+                    ("cuda planar", device, True, False),
+                    ("cuda aos", device, False, False),
+                    ("cuda planar+mxu", device, True, True),
+                    ("cuda aos+mxu", device, False, True),
+                    ("cpu", "cpu", None, False)):
+                with configuration(planar, mxu):
                     ex = TorchExecutor(geo.k, geo.n, 8, dev)
-                require(ex.use_planar is bool(planar), f"{label} executor")
+                require(ex.use_planar is bool(planar) and ex.use_mxu is mxu,
+                        f"{label} executor")
                 res = prove(prog, geometry=geo, executor=ex,
                             encoding_seed=bytes(range(32)))
                 require(res.ok, f"k={SMALL_K} {name} self-check, {label}")
                 proofs[label] = (res.proof, ex)
             same = len({p for p, _ in proofs.values()}) == 1
-            log(f"phase 4: k={SMALL_K} {name} proof bytes cuda planar == "
-                f"cuda aos == cpu: {same} ({len(proofs['cpu'][0])} bytes)")
-            require(same, f"{name}: planar, AoS and CPU proofs identical")
+            log(f"phase 4: k={SMALL_K} {name} proof bytes "
+                f"{' == '.join(proofs)}: {same} "
+                f"({len(proofs['cpu'][0])} bytes)")
+            require(same, f"{name}: proofs identical in every configuration")
             ok = verify(prog, proofs["cpu"][0], geometry=geo,
                         executor=proofs["cuda planar"][1]).ok
             log(f"phase 4: the planar CUDA verifier accepts the CPU proof "
@@ -560,14 +760,20 @@ PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
                   "submod_planar", "mont_mul_planar", "mulmod_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar")
 AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
+MXU_KERNELS = ("digitize", "renorm_mid", "renorm_final")
+# KB launches of one k-width butterfly encode at k=8192: log2(k) DIF
+# stages, and log2(n) DIT stages less the two the zero-extension skips
+STAGES_PER_ENCODE = 13
 
 
-def prove_full(device, phase: str, planar: bool, rounds: int) -> dict:
+def prove_full(device, phase: str, planar: bool, rounds: int,
+               mxu: bool = False) -> tuple[dict, bytes]:
     """Prove and verify make_wat(rounds) at k=8192 in one configuration,
     counting every kernel's launches from zero; the tamper check runs on
-    the planar main path."""
+    the planar paths.  Returns the launch counts and the proof."""
     import torch
-    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha, \
+        mxu_renorm as mr
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.prover import prove
     from ligero_prover_tpu_torch.verifier import verify
@@ -575,13 +781,13 @@ def prove_full(device, phase: str, planar: bool, rounds: int) -> dict:
 
     geo = RowGeometry(FULL_K)
     prog = wat_program(make_wat(rounds))
-    label = "planar" if planar else "aos"
-    with configuration(planar):
+    label = ("planar" if planar else "aos") + ("+mxu" if mxu else "")
+    with configuration(planar, mxu):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         T.clear_timers()
-        fm.reset_counts()
-        sha.reset_counts()
+        for module in (fm, sha, mr):
+            module.reset_counts()
         t0 = time.perf_counter()
         res = prove(prog, geometry=geo, encoding_seed=bytes(32),
                     device=device)
@@ -591,9 +797,10 @@ def prove_full(device, phase: str, planar: bool, rounds: int) -> dict:
         vres = verify(prog, res.proof, geometry=geo, device=device)
         torch.cuda.synchronize()
         verify_s = time.perf_counter() - t0
-        launches = {**fm.LAUNCHES, **sha.LAUNCHES}
+        launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
         plain = {name: calls["cuda"] for name, calls in
-                 {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS}.items()}
+                 {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS,
+                  **mr.PLAIN_CALLS}.items()}
         peak = torch.cuda.max_memory_allocated()
         stages = {s: round(T.get_timer(s), 3)
                   for s in ("stage1", "stage2", "stage3")}
@@ -606,7 +813,8 @@ def prove_full(device, phase: str, planar: bool, rounds: int) -> dict:
             f"plain_calls_on_cuda={plain}")
         require(res.ok, f"{label} prove self-check")
         require(vres.ok, f"port verifier accepts the {label} proof")
-        path = PLANAR_KERNELS if planar else AOS_KERNELS
+        path = (PLANAR_KERNELS if planar else AOS_KERNELS) \
+            + (MXU_KERNELS if mxu else ())
         require(all(launches[k] > 0 for k in path),
                 f"every kernel of the {label} path launched: {launches}")
         require(all(v == 0 for v in plain.values()),
@@ -617,6 +825,35 @@ def prove_full(device, phase: str, planar: bool, rounds: int) -> dict:
             log(f"{phase}: one-bit tamper of sampled_data rejected: "
                 f"{not bad.ok}")
             require(not bad.ok, "tampered proof rejected")
+    return launches, res.proof
+
+
+def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
+    """The planar path with the int8 encode engine at full depth: the same
+    proof as the butterfly path's, byte for byte, with every k-width
+    encode moved from the KB stages to the engine (mask rows, decode and
+    the verifier keep the butterflies)."""
+    from ligero_prover_tpu_torch.ops import mxu_ntt as mx
+    from ligero_prover_tpu_torch.ops.ntt import RSCodec
+    launches, proof = prove_full(device, "phase 7", True, FULL_ROUNDS, True)
+    tabs = RSCodec(FULL_K, 4 * FULL_K, device).mxu_tabs
+    encodes = launches["digitize"]
+    log(f"phase 7: int8 engine: {encodes} k-width encodes; tables built in "
+        f"{CARD['mxu_table_s']:.2f}s (phase 3), tables and slot buffer "
+        f"{mx.table_bytes(tabs)} device bytes; butterfly launches "
+        f"{launches['butterfly_dit']} + {launches['butterfly_dif']} against "
+        f"{butterfly['butterfly_dit']} + {butterfly['butterfly_dif']}; "
+        f"proof bytes equal the butterfly path's: "
+        f"{proof == butterfly_proof}")
+    require(launches["renorm_mid"] == 2 * encodes
+            and launches["renorm_final"] == encodes,
+            "one digitize, two renorm_mid and one renorm_final per encode")
+    for stage in ("butterfly_dit", "butterfly_dif"):
+        require(launches[stage] > 0 and launches[stage] ==
+                butterfly[stage] - STAGES_PER_ENCODE * encodes,
+                f"{stage} runs only for mask rows, decode and the verifier")
+    require(proof == butterfly_proof,
+            "the int8 engine's proof equals the butterfly proof")
     return launches
 
 
@@ -656,9 +893,12 @@ def main() -> int:
 
     measured = check_kernels(device)
     check_small_proofs(device)
-    launches = prove_full(device, "phase 5", True, FULL_ROUNDS)
-    aos = prove_full(device, "phase 6", False, AOS_ROUNDS)
+    os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
+    launches, proof = prove_full(device, "phase 5", True, FULL_ROUNDS)
+    aos, _ = prove_full(device, "phase 6", False, AOS_ROUNDS)
+    mxu = prove_mxu(device, launches, proof)
     launches.update({k: aos[k] for k in AOS_KERNELS})
+    launches.update({k: mxu[k] for k in MXU_KERNELS})
 
     meta = {
         "mont_mul": ("fieldmul.cu", "ops/pallas/fieldmul.py:260"),
@@ -673,6 +913,13 @@ def main() -> int:
         "mulmod_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
         "mont_mul_scalar_planar": ("planar.cu",
                                    "ops/pallas/fieldmul.py:269"),
+        # no caller on any path of either package: launched in phase 3 only
+        "mulmod_fma_planar": ("planar.cu", "ops/pallas/fieldmul.py:278"),
+        "digitize": ("renorm.cu", "ops/pallas/mxu_renorm.py:146"),
+        "renorm_mid": ("renorm.cu", "ops/pallas/mxu_renorm.py:130"),
+        "renorm_final": ("renorm.cu", "ops/pallas/mxu_renorm.py:124"),
+        # no caller on any path of either package: launched in phase 3 only
+        "renorm_pack": ("renorm.cu", "ops/pallas/mxu_renorm.py:139"),
     }
     table = []
     for name, (src, replaces) in meta.items():

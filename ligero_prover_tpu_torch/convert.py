@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .ops.fieldops import to_torch, to_numpy as _limbs_to_numpy
+from .ops.mxu_ntt import TABLE_KEYS, tables_to_device
 
 
 def domain_tables_from_numpy(dom: dict, device=None) -> dict:
@@ -31,6 +32,15 @@ def domain_tables_from_numpy(dom: dict, device=None) -> dict:
         "cg_inv": to_torch(np.asarray(dom["cg_inv"]), device),
         "n_inv_mont": to_torch(np.asarray(dom["n_inv_mont"]), device),
     }
+
+
+def mxu_tables_from_numpy(tabs: dict, device=None) -> dict:
+    """A ``mxu_ntt.build_codec_tables`` dict of the JAX package (int8
+    matrices ``w1``, ``wm``, ``w4``, uint32 twiddles ``tw1``, ``tw3`` and
+    the ``geom`` tuple) -> the port's device tables of the int8 engine."""
+    host = {key: np.asarray(tabs[key]) for key in TABLE_KEYS}
+    host["geom"] = tuple(tabs["geom"])
+    return tables_to_device(host, device)
 
 
 def sha_from_numpy(sha, device=None):

@@ -1,6 +1,7 @@
 // BN254-Fr arithmetic on 8 little-endian u32 limbs, shared by the field
 // kernels (fieldmul.cu: K1/K2 over AoS elements; planar.cu: the planar
-// butterfly and element-wise kernels).  Outside nvcc every function here
+// butterfly and element-wise kernels; renorm.cu: the int8 engine's
+// renormalisation).  Outside nvcc every function here
 // compiles as plain C++, so a g++ harness can include this header and
 // test the arithmetic without a card.
 //
@@ -14,6 +15,8 @@
 //             J = -p^-1 mod 2^256; t = U_hi + (m*p)_hi + [U_lo != 0]
 //             mod 2^256; t - p if t >= p.
 //   mulmod:   mont_mul(mont_mul(x, y), R^2 mod p).
+//   redc:     the reduction half of mont_mul on a given 512-bit U; the
+//             renormalisation kernels (renorm.cu) enter here.
 // The TPU kernels split limbs into 16-bit digits because the TPU VPU has
 // no 32x32->64 multiply; here products are 32-bit limbs with 64-bit
 // accumulation (IMAD.WIDE), the natural shape on an SM.
@@ -91,23 +94,10 @@ LIGERO_HD void sub_mod(const uint32_t x[8], const uint32_t y[8],
   }
 }
 
-LIGERO_HD void mont_mul(const uint32_t x[8], const uint32_t y[8],
-                        uint32_t out[8]) {
-  // U = x*y, 16 limbs
-  uint32_t u[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) u[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint64_t t = (uint64_t)x[i] * y[j] + u[i + j] + carry;
-      u[i + j] = (uint32_t)t;
-      carry = t >> 32;
-    }
-    u[i + 8] = (uint32_t)carry;
-  }
+// Montgomery reduction of a 512-bit U (16 limbs): m = U_lo*J mod 2^256;
+// t = U_hi + (m*p)_hi + [U_lo != 0] mod 2^256; out = t - p if t >= p.
+// For U < 2^256 * p this is U * 2^-256 mod p, canonical.
+LIGERO_HD void redc(const uint32_t u[16], uint32_t out[8]) {
   // m = U_lo * J mod 2^256
   uint32_t m[8];
 #pragma unroll
@@ -151,6 +141,26 @@ LIGERO_HD void mont_mul(const uint32_t x[8], const uint32_t y[8],
     c = s >> 32;
   }
   cond_sub_p(t, out);
+}
+
+LIGERO_HD void mont_mul(const uint32_t x[8], const uint32_t y[8],
+                        uint32_t out[8]) {
+  // U = x*y, 16 limbs
+  uint32_t u[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) u[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t t = (uint64_t)x[i] * y[j] + u[i + j] + carry;
+      u[i + j] = (uint32_t)t;
+      carry = t >> 32;
+    }
+    u[i + 8] = (uint32_t)carry;
+  }
+  redc(u, out);
 }
 
 LIGERO_HD void mulmod(const uint32_t x[8], const uint32_t y[8],

@@ -17,8 +17,10 @@
 // being x[:, b, i mod in_n]: that is the zero-extension of the encode
 // (ntt.py:379-381), so no tiled copy is made.
 //
-// KE replaces _k_addmod, _k_submod and _k_mont_scalar (fieldmul.py:252,
-// 256,269) and gives _k_mont_mul/_k_mulmod (:260,264) their planar entry.
+// KE replaces _k_addmod, _k_submod, _k_mont_scalar and _k_mulmod_fma
+// (fieldmul.py:252,256,269,278) and gives _k_mont_mul/_k_mulmod (:260,264)
+// their planar entry.  mulmod_fma adds the product to a third operand z,
+// a full plane read at element i.
 // The second operand y is either a full plane (y_div = 1), a value per
 // run of y_div consecutive elements (a per-row scalar over (8, B, n) rows
 // has y_div = n), or, in mode kScalar, one element read once per thread.
@@ -41,7 +43,7 @@ namespace ligero_pl {
 
 using namespace ligero_fm;
 
-enum { kAdd = 0, kSub = 1, kMont = 2, kMulmod = 3, kScalar = 4 };
+enum { kAdd = 0, kSub = 1, kMont = 2, kMulmod = 3, kScalar = 4, kFma = 5 };
 
 LIGERO_HD void load_pair(const uint32_t* p, uint32_t& a, uint32_t& b) {
 #ifdef __CUDACC__
@@ -103,10 +105,12 @@ LIGERO_HD void stage_at(const uint32_t* x, const uint32_t* tw, uint32_t* y,
 }
 
 // Element i of KE.  `s` holds the scalar's limbs in mode kScalar (read
-// once per thread by the caller); otherwise y is read at i / y_div.
+// once per thread by the caller); otherwise y is read at i / y_div.  z is
+// read in mode kFma only.
 template <int kMode>
 LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
+                          const uint32_t* z, uint32_t z_ls,
                           const uint32_t s[8], uint32_t* out, uint32_t n,
                           uint32_t i) {
   uint32_t a[8], c[8], r[8];
@@ -126,7 +130,13 @@ LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
     sub_mod(a, c, r);
   else if (kMode == kMulmod)
     mulmod(a, c, r);
-  else
+  else if (kMode == kFma) {
+    uint32_t t[8], acc[8];
+    mulmod(a, c, t);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) acc[l] = z[l * z_ls + i];
+    add_mod(acc, t, r);
+  } else
     mont_mul(a, c, r);
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
@@ -154,6 +164,7 @@ template <int kMode>
 __global__ void __launch_bounds__(256)
 eltwise_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
                const uint32_t* __restrict__ y, uint32_t y_ls, uint32_t y_div,
+               const uint32_t* __restrict__ z, uint32_t z_ls,
                uint32_t* __restrict__ out, uint32_t n) {
   uint32_t s[8];
   if (kMode == kScalar) {
@@ -163,7 +174,7 @@ eltwise_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, s, out, n, i);
+    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, z, z_ls, s, out, n, i);
 }
 
 inline unsigned grid_for(unsigned long long work) {
@@ -204,46 +215,58 @@ extern "C" int ligero_planar_stage(const void* x, const void* tw, void* y,
 
 // Element-wise planar op (KE).  x: 8 planes of n words at limb stride
 // x_ls; y: planes at limb stride y_ls, element i reading y[i / y_div]
-// (mode 4 reads element 0 only); out: (8, n) contiguous, not aliasing x
-// or y.  mode 0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar.
+// (mode 4 reads element 0 only); z: mode 5's addend, planes of n words at
+// limb stride z_ls (ignored, may be null, in the other modes); out: (8, n)
+// contiguous, not aliasing x, y or z.  mode 0 addmod, 1 submod, 2 mont_mul,
+// 3 mulmod, 4 mont_scalar, 5 mulmod_fma (z + x*y).
 // Every plane offset must stay below 2^32.  Returns cudaGetLastError().
 extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
                                      const void* y, long long y_ls,
-                                     long long y_div, void* out, long long n,
+                                     long long y_div, const void* z,
+                                     long long z_ls, void* out, long long n,
                                      int mode, void* stream) {
-  if (n < 0 || x_ls < n || y_ls < 0 || y_div < 1 || mode < 0 || mode > 4 ||
+  if (n < 0 || x_ls < n || y_ls < 0 || y_div < 1 || mode < 0 || mode > 5 ||
       7 * x_ls + n >= (1ll << 32) || 8 * n >= (1ll << 32) ||
       7 * y_ls + (n + y_div - 1) / y_div >= (1ll << 32))
+    return (int)cudaErrorInvalidValue;
+  if (mode == ligero_pl::kFma &&
+      (z == nullptr || z_ls < n || 7 * z_ls + n >= (1ll << 32)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned grid = ligero_pl::grid_for((unsigned long long)n);
   const uint32_t* xp = (const uint32_t*)x;
   const uint32_t* yp = (const uint32_t*)y;
+  const uint32_t* zp = (const uint32_t*)z;
   uint32_t* op = (uint32_t*)out;
   const uint32_t xl = (uint32_t)x_ls, yl = (uint32_t)y_ls;
+  const uint32_t zl = (uint32_t)z_ls;
   const uint32_t yd = (uint32_t)(y_div < n ? y_div : n);  // i / n == 0
   const uint32_t nn = (uint32_t)n;
   switch (mode) {
     case ligero_pl::kAdd:
       ligero_pl::eltwise_kernel<ligero_pl::kAdd><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, op, nn);
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     case ligero_pl::kSub:
       ligero_pl::eltwise_kernel<ligero_pl::kSub><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, op, nn);
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     case ligero_pl::kMont:
       ligero_pl::eltwise_kernel<ligero_pl::kMont><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, op, nn);
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     case ligero_pl::kMulmod:
       ligero_pl::eltwise_kernel<ligero_pl::kMulmod><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, op, nn);
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
+      break;
+    case ligero_pl::kFma:
+      ligero_pl::eltwise_kernel<ligero_pl::kFma><<<grid, 256, 0, s>>>(
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     default:
       ligero_pl::eltwise_kernel<ligero_pl::kScalar><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, op, nn);
+          xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
   }
   return (int)cudaGetLastError();

@@ -41,9 +41,17 @@ SIGNATURES = {
                              _I32, _P),
     # x, tw, y, B, log2(N/2), in_n (DIT input width), dit, stream
     "ligero_planar_stage": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
-    # x, x_limb_stride, y, y_limb_stride, y_div, out, n, mode
-    # (0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar), stream
-    "ligero_planar_eltwise": (_P, _I64, _P, _I64, _I64, _P, _I64, _I32, _P),
+    # x, x_limb_stride, y, y_limb_stride, y_div, z, z_limb_stride, out, n,
+    # mode (0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar,
+    # 5 mulmod_fma: z + x*y; z is read in mode 5 only), stream
+    "ligero_planar_eltwise": (_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64,
+                              _I32, _P),
+    # slots (64, X), tw, tw_limb_stride, tw_bc, tw_c (element i reads
+    # tw[:, (i // tw_bc) * tw_c + i % tw_c]; mode 1 only), out (8, X), X,
+    # mode (0 final, 1 mid, 2 pack), stream
+    "ligero_renorm": (_P, _P, _I64, _I64, _I64, _P, _I64, _I32, _P),
+    # x (8, X), out (8, X), X, stream
+    "ligero_digitize": (_P, _P, _I64, _P),
 }
 
 _lib = None

@@ -2,13 +2,13 @@
 (..., 8) limbs, and the planar family over (8, ...) limb planes: KB (one
 constant-geometry butterfly stage, ``butterfly_dit``/``butterfly_dif``)
 and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
-``mulmod_planar``, ``mont_mul_scalar_planar``).
+``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``).
 
 Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
 (``_k_mont_mul``/``_k_mulmod`` :260,264 through ``mont_mul_aos`` /
 ``mulmod_aos``; ``_k_butterfly_dit``/``_dif`` :238,245; ``_k_addmod``,
-``_k_submod``, ``_k_mont_scalar`` :252,256,269 and the planar entries of
-:351-383).  The CUDA sources are ``csrc/fieldmul.cu`` and
+``_k_submod``, ``_k_mont_scalar``, ``_k_mulmod_fma`` :252,256,269,278 and
+the planar entries of :351-383).  The CUDA sources are ``csrc/fieldmul.cu`` and
 ``csrc/planar.cu``; this module holds the wrappers and, beside each
 kernel, its plain PyTorch version.
 
@@ -51,9 +51,11 @@ from .fieldops import MASK32, P_INTS, R2_LIMBS, NLIMB, _add, _cond_sub, \
 
 PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
+FMA = "mulmod_fma_planar"     # KE's three-operand mode: acc + x*y
+FMA_MODE = 5
 STAGES = ("butterfly_dit", "butterfly_dif")
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
-                                 *PLANAR_MODE)}
+                                 *PLANAR_MODE, FMA)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
 
@@ -110,17 +112,23 @@ def _carry(cols: torch.Tensor, nlimbs: int) -> list[torch.Tensor]:
     return outs
 
 
-def _mont_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    j_dig, p_dig = _const_digits(x.device)
-    xd = _digits(x.to(torch.int64) & MASK32)
-    yd = _digits(y.to(torch.int64) & MASK32)
-    u = _carry(_conv(xd, yd), 16)
+def _redc_plain(u: list[torch.Tensor]) -> torch.Tensor:
+    """Montgomery reduction of a 512-bit U, 16 int64 u32 limb tensors:
+    (..., 8) int32 limbs of t - p if t >= p else t, with
+    t = U_hi + (m*p)_hi + [U_lo != 0] mod 2^256, m = U_lo*J mod 2^256."""
+    j_dig, p_dig = _const_digits(u[0].device)
     u_lo = torch.stack(u[:NLIMB], -1)
     m = _carry(_conv(_digits(u_lo), j_dig), NLIMB)
     mp = _carry(_conv(_digits(torch.stack(m, -1)), p_dig), 16)
     nz = (u_lo != 0).any(-1).to(torch.int64)
     t, _ = _add(u[NLIMB:], [mp[NLIMB] + nz] + mp[NLIMB + 1:])
     return narrow(_cond_sub(t, P_INTS))
+
+
+def _mont_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    xd = _digits(x.to(torch.int64) & MASK32)
+    yd = _digits(y.to(torch.int64) & MASK32)
+    return _redc_plain(_carry(_conv(xd, yd), 16))
 
 
 def mont_mul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -245,6 +253,14 @@ def mont_mul_scalar_planar_plain(x, s):
     return _on_planes(_mont_plain, x, _scalar_planes(s, x.dim()))
 
 
+def mulmod_fma_planar_plain(acc, x, y):
+    """Plain version of KE mulmod_fma: (acc + x*y) mod p over limb planes."""
+    PLAIN_CALLS[FMA][x.device.type] += 1
+    r2 = _scalar_planes(to_torch(R2_LIMBS, x.device), x.dim())
+    prod = _on_planes(_mont_plain, _on_planes(_mont_plain, x, y), r2)
+    return _on_planes(fo.addmod, acc, prod)
+
+
 def butterfly_dit_plain(x, tw):
     """Plain version of KB, DIT: x (8, B, w) -> (8, B, N), N = 2*tw.shape[1];
     a narrower x is tiled to N first (the zero-extension of the encode)."""
@@ -325,12 +341,21 @@ def eltwise_args(name: str, x: torch.Tensor, y: torch.Tensor):
     return x, x_ls, y, y_ls, y_div, n
 
 
-def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
+             acc: torch.Tensor | None = None) -> torch.Tensor:
     x, x_ls, y, y_ls, y_div, n = eltwise_args(name, x, y)
+    z_ptr, z_ls, mode = None, 0, PLANAR_MODE.get(name, FMA_MODE)
+    if acc is not None:
+        _check_operands(name, x, acc)
+        if acc.shape != x.shape:
+            raise ValueError(f"{name}: acc {tuple(acc.shape)} must have x's "
+                             f"shape {tuple(x.shape)}")
+        acc, z_ls = _with_plane_stride(acc)
+        z_ptr = acc.data_ptr()
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     rc = kernels.lib().ligero_planar_eltwise(
-        x.data_ptr(), x_ls, y.data_ptr(), y_ls, y_div, out.data_ptr(), n,
-        PLANAR_MODE[name], kernels.stream_handle(x.device))
+        x.data_ptr(), x_ls, y.data_ptr(), y_ls, y_div, z_ptr, z_ls,
+        out.data_ptr(), n, mode, kernels.stream_handle(x.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -425,3 +450,11 @@ def mont_mul_scalar_planar(x, s):
     if _on_cpu(x, s):
         return mont_mul_scalar_planar_plain(x, s)
     return _eltwise("mont_mul_scalar_planar", x, s)
+
+
+def mulmod_fma_planar(acc, x, y):
+    """KE: (acc + x*y) mod p over limb planes; acc has x's shape, y
+    broadcasts over x's trailing axes as in :func:`mulmod_planar`."""
+    if _on_cpu(acc, x, y):
+        return mulmod_fma_planar_plain(acc, x, y)
+    return _eltwise(FMA, x, y, acc)

@@ -26,6 +26,13 @@ first DIT stage.  :data:`USE_PLANAR` selects the path: None (auto) means
 planar for CUDA tensors and AoS for CPU tensors, the reference's "planar
 off the CPU" rule (``ntt.py:174-182``) applied per device.
 
+A third engine serves the k-width encode of commit, check and open: the
+int8 four-step encode of ``ops/mxu_ntt.py`` (three int8 matrix products and
+the KR renormalisation kernels), selected by :data:`USE_MXU` and fed by
+:attr:`RSCodec.mxu_tabs`; the reference's ``USE_MXU`` (``ntt.py:181-189,
+484-501``).  2k mask rows, decode and the verifier stay on the butterfly
+paths.
+
 Mathematical contract:
   encode    = NTT_n(zero_extend(iNTT_k(row)))
   encode_2k = NTT_n(zero_extend(iNTT_2k(mask_row)))
@@ -53,6 +60,21 @@ def _planar_use(device) -> bool:
     if USE_PLANAR is not None:
         return USE_PLANAR
     return torch.device(device).type != "cpu"
+
+
+USE_MXU: bool | None = None      # None = auto, see MXU_ON_CUDA
+# What None means for CUDA tensors.  Off: on the card the int8 engine has
+# not measured faster than the butterflies (PERF.md, section 6, has the
+# walls, the card and its power limit).  CPU tensors: always off.
+MXU_ON_CUDA = False
+
+
+def _mxu_use(device) -> bool:
+    """Whether k-width encodes of tensors on `device` take the int8
+    engine."""
+    if USE_MXU is not None:
+        return USE_MXU
+    return MXU_ON_CUDA and torch.device(device).type != "cpu"
 
 
 def _bitrev(n: int) -> np.ndarray:
@@ -244,9 +266,29 @@ class RSCodec:
         assert n == 4 * k
         w_k, w_2k, w_n = F.generate_omegas(k, n)
         self.k, self.n = k, n
+        self.device = torch.device(device if device is not None else "cpu")
+        self._omegas = (w_k, w_2k, w_n)
+        self._mxu_tabs = None
         self.dom_k = build_domain_tables(k, w_k, device)
         self.dom_2k = build_domain_tables(2 * k, w_2k, device)
         self.dom_n = build_domain_tables(n, w_n, device)
+
+    _MXU_TAB_CACHE: dict = {}
+
+    @property
+    def mxu_tabs(self) -> dict:
+        """Device tables of the int8 engine for the k -> n encode, built at
+        first use and cached per (k, n, device) across codecs: the host
+        build takes seconds and the tables tens of megabytes."""
+        if self._mxu_tabs is None:
+            key = (self.k, self.n, str(self.device))
+            if key not in RSCodec._MXU_TAB_CACHE:
+                from .mxu_ntt import build_codec_tables, tables_to_device
+                RSCodec._MXU_TAB_CACHE[key] = tables_to_device(
+                    build_codec_tables(self.k, self.n, self._omegas[0],
+                                       self._omegas[2]), self.device)
+            self._mxu_tabs = RSCodec._MXU_TAB_CACHE[key]
+        return self._mxu_tabs
 
     def encode(self, rows):
         return encode_rows(rows, self.dom_k, self.dom_n, self.n)

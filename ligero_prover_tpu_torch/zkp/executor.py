@@ -5,6 +5,10 @@ configurations: planar (limb-plane codewords, the KB/KE kernels and the
 planar SHA absorb; the default for CUDA tensors) and AoS (K1 plus plain
 limb arithmetic; the default for CPU tensors).  ``ops.ntt.USE_PLANAR``
 overrides the choice, which the executor resolves once when it is made.
+With ``ops.ntt.USE_MXU`` (resolved the same way) the k-width encode of
+commit, check and open goes through the int8 four-step engine
+(``ops/mxu_ntt.py``) in either configuration; 2k mask rows, decode and the
+verifier keep the butterfly encode.
 The contexts queue rows on the host and flush them through one call per
 batch:
 
@@ -35,8 +39,9 @@ from ..ops import fieldmul as fm
 from ..ops import fieldops as fo
 from ..ops import sha256 as tsha
 from ..ops.fieldops import R2_LIMBS
-from ..ops.ntt import RSCodec, _planar_use, decode_rows, encode_rows, \
-    encode_rows_cg, encode_rows_cg_planar_core
+from ..ops.mxu_ntt import encode_rows_mxu, encode_rows_mxu_core
+from ..ops.ntt import RSCodec, _mxu_use, _planar_use, decode_rows, \
+    encode_rows, encode_rows_cg, encode_rows_cg_planar_core
 
 NLIMB = 8
 _R2: dict = {}
@@ -57,13 +62,28 @@ def _masked_sum(acc, terms):
     return acc
 
 
+def _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs):
+    """(B, w, 8) rows -> (8, B, n) codeword planes, by the int8 engine
+    when its tables are given, else by the planar butterflies."""
+    if mxu_tabs is not None:
+        return encode_rows_mxu_core(rows, mxu_tabs, n)
+    return encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
+
+
+def _encode_aos(rows, dom_msg, dom_n, n, mxu_tabs):
+    """(B, w, 8) rows -> (B, n, 8) codewords, AoS configuration."""
+    if mxu_tabs is not None:
+        return encode_rows_mxu(rows, mxu_tabs, n)
+    return encode_rows_cg(rows, dom_msg, dom_n, n)
+
+
 def _commit_body(state, pending, has_pending, rows, valid_count,
-                 dom_msg, dom_n, n, use_planar=False):
+                 dom_msg, dom_n, n, use_planar=False, mxu_tabs=None):
     if use_planar:
-        cws = encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
+        cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
         return tsha.absorb_stream_planar(state, pending, has_pending, cws,
                                          valid_count)
-    cws = encode_rows_cg(rows, dom_msg, dom_n, n)
+    cws = _encode_aos(rows, dom_msg, dom_n, n, mxu_tabs)
     return tsha.absorb_stream(state, pending, has_pending, cws, valid_count)
 
 
@@ -100,7 +120,7 @@ def _tree_sum_mod_planar(x):
 
 def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
                        tri_r, pair_idx, pair_r, dom_k, dom_n, n,
-                       rands_zero=False):
+                       rands_zero=False, mxu_tabs=None):
     """Planar stage-2 pipeline (reference ``executor.py:175-252``): the
     codewords stay limb planes; each test is one KE launch per op over the
     whole batch plus one tree sum.
@@ -109,7 +129,7 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
     mont_mul with R^2, so each big product is ONE mont_mul
     (x * sR * R^-1 = x*s); the linear test (both operands plain) sums the
     mont_mul products first and scales the (8, n) sum by R once."""
-    e = encode_rows_cg_planar_core(rows, dom_k, dom_n, n)     # (8, B, n)
+    e = _encode_planes(rows, dom_k, dom_n, n, mxu_tabs)       # (8, B, n)
     r2 = _r2(e.device)
 
     def scale_r(v):
@@ -124,7 +144,7 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
     code = fm.addmod_planar(planes(code), _tree_sum_mod_planar(prods))
     # linear test: += sum_b e[b] * r[b]  (identity when rands are zero)
     if not rands_zero:
-        r = encode_rows_cg_planar_core(rands, dom_k, dom_n, n)
+        r = _encode_planes(rands, dom_k, dom_n, n, mxu_tabs)
         lin = scale_r(_tree_sum_mod_planar(fm.mont_mul_planar(e, r)))
         linear = fm.addmod_planar(planes(linear), lin).T.contiguous()
     # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms, the
@@ -141,18 +161,18 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
 
 def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
                 pair_idx, pair_r, dom_k, dom_n, n, use_planar=False,
-                rands_zero=False):
+                rands_zero=False, mxu_tabs=None):
     """`rands_zero`: the flush carries only batch rows, which have no
     linear-test randomness rows; the second encode and the linear
     accumulation are identities on zeros and are skipped."""
     if use_planar:
         return _check_body_planar(code, linear, quad, rows, rands, code_rs,
                                   tri_idx, tri_r, pair_idx, pair_r, dom_k,
-                                  dom_n, n, rands_zero)
-    e = encode_rows_cg(rows, dom_k, dom_n, n)
+                                  dom_n, n, rands_zero, mxu_tabs)
+    e = _encode_aos(rows, dom_k, dom_n, n, mxu_tabs)
     code = _masked_sum(code, fo.mulmod(e, code_rs[:, None, :]))
     if not rands_zero:
-        r = encode_rows_cg(rands, dom_k, dom_n, n)
+        r = _encode_aos(rands, dom_k, dom_n, n, mxu_tabs)
         linear = _masked_sum(linear, fo.mulmod(e, r))
     quad = _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r)
     return code, linear, quad
@@ -169,12 +189,13 @@ def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n,
     return code, linear, quad
 
 
-def _open_body(rows, idx, dom_msg, dom_n, n, use_planar=False):
+def _open_body(rows, idx, dom_msg, dom_n, n, use_planar=False,
+               mxu_tabs=None):
     """Encode (B, w, 8) rows and keep the sampled columns: (B, S, 8).  The
-    planar path gathers from the limb planes, so only the S sampled
-    columns are transposed back."""
-    if use_planar:
-        cws = encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
+    planar path and the int8 engine gather from the limb planes, so only
+    the S sampled columns are transposed back."""
+    if use_planar or mxu_tabs is not None:      # the engine makes planes
+        cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
         return cws.index_select(2, idx).movedim(0, -1).contiguous()
     return encode_rows_cg(rows, dom_msg, dom_n, n).index_select(1, idx)
 
@@ -213,6 +234,7 @@ class TorchExecutor:
         self.codec = RSCodec(k, n, self.device)
         self.batch_rows = batch_rows
         self.use_planar = _planar_use(self.device)
+        self.use_mxu = _mxu_use(self.device)
 
     # ---- tensors ---------------------------------------------------------
 
@@ -256,6 +278,12 @@ class TorchExecutor:
     def concat(self, parts, dim: int = 0) -> torch.Tensor:
         return torch.cat([self._limbs(p) for p in parts], dim=dim)
 
+    def _mxu_tabs(self, width_2k: bool = False):
+        """The int8 engine's tables for a k-width encode, or None: 2k mask
+        rows (once per proof) keep the butterfly encode, which saves a
+        second table set for a cold geometry."""
+        return self.codec.mxu_tabs if self.use_mxu and not width_2k else None
+
     # ---- stage 1: commit -------------------------------------------------
 
     def commit_step(self, sha, rows, valid_count, *, width_2k=False):
@@ -263,7 +291,7 @@ class TorchExecutor:
         state, pending, has_pending = sha
         return _commit_body(state, pending, has_pending, self._limbs(rows),
                             int(valid_count), dom, self.codec.dom_n, self.n,
-                            self.use_planar)
+                            self.use_planar, self._mxu_tabs(width_2k))
 
     # ---- stage 2: checks -------------------------------------------------
 
@@ -274,7 +302,7 @@ class TorchExecutor:
                            self._limbs(tri_r), self._index(pair_idx),
                            self._limbs(pair_r), self.codec.dom_k,
                            self.codec.dom_n, self.n, self.use_planar,
-                           rands_zero)
+                           rands_zero, self._mxu_tabs())
 
     def mask_step(self, accs, code_row, linear_row, quad_row):
         return _mask_body(*accs, self._limbs(code_row),
@@ -287,7 +315,8 @@ class TorchExecutor:
     def open_step(self, rows, sample_idx, *, width_2k=False):
         dom = self.codec.dom_2k if width_2k else self.codec.dom_k
         return _open_body(self._limbs(rows), self._index(sample_idx), dom,
-                          self.codec.dom_n, self.n, self.use_planar)
+                          self.codec.dom_n, self.n, self.use_planar,
+                          self._mxu_tabs(width_2k))
 
     # ---- verifier --------------------------------------------------------
 

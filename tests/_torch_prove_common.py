@@ -49,15 +49,22 @@ def make_env():
         K, 4 * K, 8, "cpu"), "jgeo": JGeometry(K), "tgeo": RowGeometry(K)}
 
 
-def make_proofs(env, programs):
-    """Both packages' proofs of every program: name -> (JAX, port)."""
+def make_proofs(env, programs, reference=None):
+    """Both packages' proofs of every program: name -> (JAX, port).  The
+    JAX proofs are kept in `reference` (name -> proof) when given, so a
+    second configuration of the port reuses them."""
     mp = pytest.MonkeyPatch()
     mp.setenv("LIGERO_PROOF_TIMESTAMP", "1700000000")
     out = {}
+    if reference is None:
+        reference = {}
     try:
         for name, (jprog, tprog) in programs.items():
-            j = jprover.prove(jprog, geometry=env["jgeo"],
-                              executor=env["jex"], encoding_seed=SEED)
+            if name not in reference:
+                reference[name] = jprover.prove(
+                    jprog, geometry=env["jgeo"], executor=env["jex"],
+                    encoding_seed=SEED)
+            j = reference[name]
             t = tprover.prove(tprog, geometry=env["tgeo"],
                               executor=env["tex"], encoding_seed=SEED)
             out[name] = (j, t)

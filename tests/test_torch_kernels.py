@@ -250,3 +250,57 @@ def test_aos_executor_steps_match_cpu(cuda_device, monkeypatch):
     cw = rand_limbs(gen, (n,))
     np.testing.assert_array_equal(convert.to_numpy(gpu.decode(cw)),
                                   convert.to_numpy(cpu.decode(cw)))
+
+
+def test_mulmod_fma_kernel_matches_plain(cuda_device):
+    gen = np.random.default_rng(30)
+    for canonical, shape in ((True, (3, 1000)), (False, (1027,))):
+        acc, x, y = (to_t(np.moveaxis(rand_limbs(gen, shape, canonical),
+                                      -1, 0), cuda_device)
+                     for _ in range(3))
+        before = tfm.LAUNCHES["mulmod_fma_planar"]
+        got = tfm.mulmod_fma_planar(acc, x, y)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES["mulmod_fma_planar"] == before + 1
+        assert torch.equal(got.cpu(), tfm.mulmod_fma_planar_plain(
+            acc.cpu(), x.cpu(), y.cpu()))
+    with pytest.raises(ValueError):
+        tfm.mulmod_fma_planar(acc[:, :5], x, y)
+
+
+def test_renorm_kernels_and_engine_on_the_card(cuda_device):
+    """KR on real slots at k=256, B=8 (ragged against the block size at
+    level 1), the twiddle read by index and broadcast, and the int8
+    engine's encode against the butterfly encode."""
+    from ligero_prover_tpu_torch.ops import mxu_ntt as tmx
+    from ligero_prover_tpu_torch.ops import mxu_renorm as tmr
+    from ligero_prover_tpu_torch.ops import ntt as tntt
+    k, n, bsz = 256, 1024, 8
+    codec = tntt.RSCodec(k, n, cuda_device)
+    tabs = codec.mxu_tabs
+    r1, c1 = tabs["geom"][:2]
+    rows = to_t(rand_limbs(np.random.default_rng(31), (bsz, k)), cuda_device)
+    x = rows.movedim(-1, 0).contiguous()
+    tmr.reset_counts()
+    xp = tmr.digitize(x)
+    assert torch.equal(xp.cpu(), tmr.digitize_plain(x.cpu()))
+    slots = tmx.level1_slots(xp.view(8, bsz, r1, c1), tabs).clone()
+    tw = tabs["tw1"]
+    full = tw.expand(8, r1, bsz, c1).contiguous()
+    want = tmr.renorm_mid_plain(slots.cpu(), tw.cpu())
+    for table in (tw, full):
+        assert torch.equal(tmr.renorm_mid(slots, table).cpu(), want)
+    assert torch.equal(tmr.renorm_final(slots).cpu(),
+                       tmr.renorm_final_plain(slots.cpu()))
+    assert torch.equal(tmr.renorm_pack(slots).cpu(),
+                       tmr.renorm_pack_plain(slots.cpu()))
+    assert tmr.LAUNCHES == {"digitize": 1, "renorm_final": 1,
+                            "renorm_mid": 2, "renorm_pack": 1}
+    assert all(not calls["cuda"] for calls in tmr.PLAIN_CALLS.values())
+    got = tmx.encode_rows_mxu_core(rows, tabs, n)
+    want = tntt.encode_rows_cg_planar_core(rows, codec.dom_k, codec.dom_n, n)
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        tmr.renorm_final(slots.to(torch.int64))
+    with pytest.raises(ValueError):
+        tmr.renorm_mid(slots, tw.cpu())

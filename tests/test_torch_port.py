@@ -42,6 +42,29 @@ def test_copied_module_has_not_drifted(rel):
     assert (PORT / rel).read_text() == want
 
 
+# pure-Python table functions of the int8 engine, copied function by
+# function (the reference module imports jax at its top)
+MXU_TABLE_FUNCS = ["_signed_digits", "_toeplitz_digits", "_split_rc",
+                "_pow_table", "_dft_matrix", "_twiddle_mont_planar"]
+
+
+@pytest.mark.parametrize("name", MXU_TABLE_FUNCS)
+def test_copied_table_function_has_not_drifted(name):
+    import inspect
+    from ligero_prover_tpu.ops import mxu_ntt as ref
+    from ligero_prover_tpu_torch.ops import mxu_ntt as port
+    assert inspect.getsource(getattr(port, name)) == \
+        inspect.getsource(getattr(ref, name))
+
+
+@pytest.mark.parametrize("rel", ["ops/mxu_ntt.py", "ops/mxu_renorm.py"])
+def test_engine_modules_import_no_jax(rel):
+    text = (PORT / rel).read_text()
+    assert not re.search(r"^\s*(import|from) (jax|ligero_prover_tpu)\b",
+                         text, re.M)
+    assert re.search(r"^import torch$", text, re.M)
+
+
 def test_port_sources_import_no_jax():
     bad = re.compile(r"^\s*(import|from) (jax|ligero_prover_tpu)\b", re.M)
     hits = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
@@ -68,6 +91,11 @@ geo = RowGeometry(256)
 res = prove(prog, geometry=geo, encoding_seed=bytes(32), device="cpu")
 assert res.ok
 assert verify(prog, res.proof, geometry=geo, device="cpu").ok
+from ligero_prover_tpu_torch.ops import mxu_ntt, mxu_renorm, ntt
+ntt.USE_MXU = True
+mxu = prove(prog, geometry=geo, encoding_seed=bytes(32), device="cpu")
+assert mxu.ok and mxu_renorm.PLAIN_CALLS["renorm_final"]["cpu"] > 0
+assert mxu.root == res.root
 assert "jax" not in [m.split(".")[0] for m in sys.modules
                      if sys.modules[m] is not None]
 print("NO_JAX_OK")
