@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
 source, in parallel), checks each kernel against its plain PyTorch version
-at the shapes of the main path and times it, checks that small proofs made
+at the shapes of the main path and times it (KB per butterfly transform,
+as its planned passes, beside the one-stage-per-launch composition), checks that small proofs made
 on the GPU in the planar and the AoS configuration, each with the butterfly
 and with the int8 encode engine, are byte-identical to the same proofs made
 on the CPU, then drives the configurations through the port's
@@ -85,7 +86,7 @@ SASS_NAME = {
     "mont_mul": "mont_mul_kernelILi0E", "mulmod": "mont_mul_kernelILi1E",
     "sha256_absorb": "absorb_kernelILb0E",
     "sha256_absorb_planar": "absorb_kernelILb1E",
-    "butterfly_dit": "stage_kernelILb1E", "butterfly_dif": "stage_kernelILb0E",
+    "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
     "mont_mul_planar": "eltwise_kernelILi2E",
@@ -360,6 +361,20 @@ def check_aos_kernels(device, gen, lib, stream, results):
            field_ms("mulmod", x, y),
            cuda_ms(lambda: fm.mulmod_plain(x, y), 3),
            bound("mulmod", 96 * n2, n2))
+    # K2 at the shapes of its callers on the planar path: the vbn254fr
+    # arena's (k, 8) rows and the verifier's (B, 192, 8) sums
+    for label, shape in (("arena", (FULL_K,)), ("verifier", (16, 192))):
+        xs, ys = limbs(shape), limbs(shape)
+        err = compare("mulmod", (xs, ys))
+        size = xs.numel() // 8
+        times = field_ms("mulmod", xs, ys)
+        bnd = bound("mulmod", 96 * size, size)
+        CARD[f"mulmod_{label}"] = {"ms": times[0], "bound_ms": bnd[0]}
+        log(f"phase 3: mulmod at the {label}'s {shape + (8,)}: max_abs_err="
+            f"{err} kernel_ms={times[0]:.4f} (operands in L2: "
+            f"{times[1]:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0, f"mulmod at the {label}'s shape equals its plain "
+                "version")
 
     # K3: two flushes of B=16 over C=32768 columns; the first leaves an odd
     # element pending, the second has valid_count < B
@@ -390,8 +405,8 @@ def check_aos_kernels(device, gen, lib, stream, results):
 
 
 def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
-    """KB, KE in every mode and K3 on planar rows, at the calls of the
-    planar path: n = 4k, 16 rows per flush."""
+    """KE in every mode and K3 on planar rows, at the calls of the planar
+    path: n = 4k, 16 rows per flush."""
     import torch
     from ligero_prover_tpu_torch import kernels
     from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha
@@ -401,33 +416,6 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
     def planes(shape, canonical=True):
         return random_limbs(gen, shape, device, canonical) \
             .movedim(-1, 0).contiguous()
-
-    # KB: a DIT n-stage over (8, 16, n) and a DIF k-stage over (8, 16, k),
-    # plus non-canonical operands; DIT also reads an (8, 16, k) input tiled
-    # to n, as the first stage after the encode's zero-extension does
-    for name, width, dit in (("butterfly_dit", n, 1),
-                             ("butterfly_dif", k, 0)):
-        kernel = getattr(fm, name)
-        plain = getattr(fm, name + "_plain")
-        x, tw = planes((bsz, width)), planes((width // 2,))
-        xw, tww = planes((bsz, width), False), planes((width // 2,), False)
-        xw[:, 0, :6] = edge_limbs(device).T
-        tww[:, :6] = edge_limbs(device, reverse=True).T
-        cases = [(x, tw), (xw, tww)]
-        if dit:
-            cases.append((planes((bsz, k)), tw))
-        err = compare_cases(kernel, plain, cases)
-        log2h = (width // 2).bit_length() - 1
-        report(results, name, f"(8,{bsz},{width}) canonical and non-canonical"
-               + (f", (8,{bsz},{k}) read tiled" if dit else ""), err,
-               launches_ms(lambda x, tw, y: kernels.check(
-                   lib.ligero_planar_stage(x.data_ptr(), tw.data_ptr(),
-                                           y.data_ptr(), bsz, log2h, width,
-                                           dit, stream), name),
-                   x, tw, torch.empty_like(x)),
-               cuda_ms(lambda: plain(x, tw), 3),
-               bound(name, 32 * (2 * bsz * width + width // 2),
-                     bsz * width // 2))
 
     # KE, timed at the call the main path makes in each mode:
     #   addmod   the tree sum's first fold: the two (8, 8, n) halves of
@@ -519,6 +507,178 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
                state, pending, False, flushes[0][0], 16), 3),
            bound("sha256_absorb_planar", 32 * cols * (bsz + 3), cols,
                  bsz // 2))
+
+
+def check_butterfly_passes(device, gen, lib, stream, results, k=FULL_K):
+    """KB at every butterfly transform of the planar path at k (n = 4k):
+    each transform as its planned passes (``ops.ntt.pass_plan``) against
+    the plain passes, on canonical rows with the real twiddles and on
+    non-canonical rows with the edge values and a non-canonical table, and
+    against the one-stage-per-launch composition (``max_pass=1``); timed
+    per transform beside the one-stage composition and the bound.  Then a
+    16-row k -> n encode and a decode through passes against the one-stage
+    path, limb for limb, with their launches and times."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, ntt
+
+    n, bsz = 4 * k, 16
+    codec = ntt.RSCodec(k, n, device)
+    kdom, k2dom, ndom = codec.dom_k, codec.dom_2k, codec.dom_n
+    # (label, dit, rows, table, first stage, input width); the k-width
+    # encode runs at B = 16 (commit, check, open, the verifier's rands)
+    # and at B = 1 (the mask's code row)
+    transforms = [
+        ("k-width encode DIF", False, bsz, kdom["cg_inv_pl"], 0, k),
+        ("k-width encode DIT", True, bsz, ndom["cg_fwd_pl"], 2, k),
+        ("mask code row DIF", False, 1, kdom["cg_inv_pl"], 0, k),
+        ("mask code row DIT", True, 1, ndom["cg_fwd_pl"], 2, k),
+        ("2k mask row DIF", False, 1, k2dom["cg_inv_pl"], 0, 2 * k),
+        ("2k mask row DIT", True, 1, ndom["cg_fwd_pl"], 1, 2 * k),
+        ("decode DIF", False, 1, ndom["cg_inv_pl"], 0, n),
+        ("decode DIT", True, 1, kdom["cg_fwd_pl"], 0, k),
+    ]
+
+    def planes(shape, canonical=True):
+        return random_limbs(gen, shape, device, canonical) \
+            .movedim(-1, 0).contiguous()
+
+    def plan_of(tws, first, max_pass):
+        log2n = tws.shape[0]
+        return ntt.pass_plan(log2n, first, log2n - first, max_pass)
+
+    def through(dit, x, tws, first, max_pass):
+        """The transform by the wrappers (kernels)."""
+        if dit:
+            return ntt._cg_dit_scan_planar(x, tws, first, max_pass)
+        return ntt._cg_dif_scan_planar(x, tws, max_pass)
+
+    def plain(dit, x, tws, first):
+        """The transform by the plain passes of the planned split."""
+        plan = plan_of(tws, first, ntt.LARGEST_PASS)
+        for t0, s in (plan if dit else reversed(plan)):
+            x = (fm.butterfly_dit_pass_plain if dit else
+                 fm.butterfly_dif_pass_plain)(x, tws, t0, s)
+        return x
+
+    def launcher(dit, tws, first, max_pass, rows, width):
+        """All passes of one transform through the C entry point, on
+        (x, tws, buffer, buffer)."""
+        plan = plan_of(tws, first, max_pass)
+        if not dit:
+            plan = plan[::-1]
+        log2n = tws.shape[0]
+        name = "butterfly_dit" if dit else "butterfly_dif"
+
+        def launch(x, tw, b0, b1):
+            src, w = x, width
+            for i, (t0, s) in enumerate(plan):
+                dst = (b0, b1)[i % 2]
+                kernels.check(lib.ligero_planar_pass(
+                    src.data_ptr(), tw[t0].data_ptr(), dst.data_ptr(), rows,
+                    log2n, w, s, int(dit), stream), name)
+                src, w = dst, 1 << log2n
+        return launch
+
+    for label, dit, rows, tws, first, width in transforms:
+        name = "butterfly_dit" if dit else "butterfly_dif"
+        x = planes((rows, width))
+        xw = planes((rows, width), False)
+        xw[:, 0, :6] = edge_limbs(device).T
+        tww = planes((tws.shape[0], tws.shape[2]), False).transpose(0, 1) \
+            .contiguous()
+        tww[0, :, :6] = edge_limbs(device, reverse=True).T
+        err = one_err = 0
+        for xs, tw in ((x, tws), (xw, tww)):
+            got = through(dit, xs, tw, first, ntt.LARGEST_PASS)
+            one = through(dit, xs, tw, first, 1)
+            want = plain(dit, xs, tw, first)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+            one_err = max(one_err, max_abs_err(got, one))
+        log2n = tws.shape[0]
+        npass = len(plan_of(tws, first, ntt.LARGEST_PASS))
+        stages = log2n - first
+        out_n = 1 << log2n
+        bufs = (x, tws, torch.empty((8, rows, out_n), dtype=torch.int32,
+                                    device=device),
+                torch.empty((8, rows, out_n), dtype=torch.int32,
+                            device=device))
+        times = launches_ms(launcher(dit, tws, first, ntt.LARGEST_PASS, rows,
+                                     width), *bufs, iters=20)
+        one_times = launches_ms(launcher(dit, tws, first, 1, rows, width),
+                                *bufs, iters=20)
+        # input read once, output written once, each stage's twiddle plane
+        # read once; one butterfly per output pair per stage
+        bnd = bound(name, 32 * rows * (width + out_n)
+                    + 32 * (out_n // 2) * stages, rows * out_n // 2, stages)
+        CARD.setdefault("kb", {})[label] = {
+            "rows": rows, "passes": npass, "stages": stages, "ms": times[0],
+            "hot_ms": times[1], "one_stage_ms": one_times[0],
+            "one_stage_hot_ms": one_times[1], "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+        log(f"phase 3: KB {label} (8,{rows},{width}) -> (8,{rows},{out_n}), "
+            f"{stages} stages in {npass} passes: max_abs_err={err} against "
+            f"the plain passes, {one_err} against the one-stage path; per "
+            f"transform kernel_ms={times[0]:.4f} (operands in L2: "
+            f"{times[1]:.4f}) one_stage_ms={one_times[0]:.4f} (in L2: "
+            f"{one_times[1]:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0 and one_err == 0,
+                f"KB {label} equals its plain passes and the one-stage path")
+        if label.startswith("k-width encode") and rows == bsz:
+            report(results, name, f"{label}, (8,{rows},{width}) -> "
+                   f"(8,{rows},{out_n}), {npass} passes, canonical and "
+                   "non-canonical", err, times,
+                   cuda_ms(lambda: plain(dit, x, tws, first), 3), bnd)
+
+    # one 16-row k -> n encode and one decode, passes against one stage
+    rows = random_limbs(gen, (bsz, k), device, True)
+    rows[0, :6] = edge_limbs(device)
+    cws = random_limbs(gen, (1, n), device, False)
+    cws[0, :6] = edge_limbs(device)
+    before = dict(fm.LAUNCHES)
+    enc = ntt.encode_rows_cg_planar_core(rows, kdom, ndom, n)
+    launched = {key: v - before[key] for key, v in fm.LAUNCHES.items()
+                if v != before[key]}
+    enc1 = ntt.encode_rows_cg_planar_core(rows, kdom, ndom, n, 1)
+    dec = ntt.decode_rows_cg_planar(cws, kdom, ndom, k)
+    dec1 = ntt.decode_rows_cg_planar(cws, kdom, ndom, k, 1)
+    torch.cuda.synchronize()
+    same = torch.equal(enc, enc1) and torch.equal(dec, dec1)
+    CARD["encode_launches"] = launched
+
+    def host_and_events(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        host, dev = [], []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(start.elapsed_time(end))
+        return statistics.median(host), statistics.median(dev)
+
+    enc_t = host_and_events(lambda: ntt.encode_rows_cg_planar_core(
+        rows, kdom, ndom, n))
+    enc1_t = host_and_events(lambda: ntt.encode_rows_cg_planar_core(
+        rows, kdom, ndom, n, 1))
+    CARD["encode16"] = {"host_ms": enc_t[0], "event_ms": enc_t[1],
+                        "one_stage_host_ms": enc1_t[0],
+                        "one_stage_event_ms": enc1_t[1]}
+    log(f"phase 3: 16-row k={k} encode and a decode through passes == the "
+        f"one-stage path limb for limb: {same}; encode launches {launched} "
+        f"({sum(launched.values())} in all); encode host/events "
+        f"{enc_t[0]:.4f}/{enc_t[1]:.4f} ms, one-stage path "
+        f"{enc1_t[0]:.4f}/{enc1_t[1]:.4f} ms")
+    require(same, "encode and decode through passes equal the one-stage "
+            "path")
+    require(sum(launched.values()) <= 7,
+            f"a k-width encode makes at most 7 launches: {launched}")
 
 
 def check_mxu_kernels(device, gen, lib, stream, results, k=FULL_K):
@@ -679,6 +839,7 @@ def check_kernels(device) -> dict:
     lib, stream = kernels.lib(), kernels.stream_handle(device)
     results = {}
     check_aos_kernels(device, gen, lib, stream, results)
+    check_butterfly_passes(device, gen, lib, stream, results)
     check_planar_kernels(device, gen, lib, stream, results)
     check_mxu_kernels(device, gen, lib, stream, results)
     return results
@@ -761,9 +922,6 @@ PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar")
 AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
 MXU_KERNELS = ("digitize", "renorm_mid", "renorm_final")
-# KB launches of one k-width butterfly encode at k=8192: log2(k) DIF
-# stages, and log2(n) DIT stages less the two the zero-extension skips
-STAGES_PER_ENCODE = 13
 
 
 def prove_full(device, phase: str, planar: bool, rounds: int,
@@ -834,23 +992,32 @@ def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
     encode moved from the KB stages to the engine (mask rows, decode and
     the verifier keep the butterflies)."""
     from ligero_prover_tpu_torch.ops import mxu_ntt as mx
-    from ligero_prover_tpu_torch.ops.ntt import RSCodec
+    from ligero_prover_tpu_torch.ops.ntt import LARGEST_PASS, RSCodec, \
+        pass_plan
     launches, proof = prove_full(device, "phase 7", True, FULL_ROUNDS, True)
+    # KB launches of one k-width butterfly encode: the passes of log2(k)
+    # DIF stages, and of log2(n) DIT stages less the two the
+    # zero-extension skips
+    log2k = FULL_K.bit_length() - 1
+    per_encode = {"butterfly_dif": len(pass_plan(log2k, 0, log2k,
+                                                 LARGEST_PASS)),
+                  "butterfly_dit": len(pass_plan(log2k + 2, 2, log2k,
+                                                 LARGEST_PASS))}
     tabs = RSCodec(FULL_K, 4 * FULL_K, device).mxu_tabs
     encodes = launches["digitize"]
     log(f"phase 7: int8 engine: {encodes} k-width encodes; tables built in "
         f"{CARD['mxu_table_s']:.2f}s (phase 3), tables and slot buffer "
         f"{mx.table_bytes(tabs)} device bytes; butterfly launches "
         f"{launches['butterfly_dit']} + {launches['butterfly_dif']} against "
-        f"{butterfly['butterfly_dit']} + {butterfly['butterfly_dif']}; "
-        f"proof bytes equal the butterfly path's: "
-        f"{proof == butterfly_proof}")
+        f"{butterfly['butterfly_dit']} + {butterfly['butterfly_dif']} "
+        f"({per_encode} passes per encode); proof bytes equal the "
+        f"butterfly path's: {proof == butterfly_proof}")
     require(launches["renorm_mid"] == 2 * encodes
             and launches["renorm_final"] == encodes,
             "one digitize, two renorm_mid and one renorm_final per encode")
     for stage in ("butterfly_dit", "butterfly_dif"):
         require(launches[stage] > 0 and launches[stage] ==
-                butterfly[stage] - STAGES_PER_ENCODE * encodes,
+                butterfly[stage] - per_encode[stage] * encodes,
                 f"{stage} runs only for mask rows, decode and the verifier")
     require(proof == butterfly_proof,
             "the int8 engine's proof equals the butterfly proof")

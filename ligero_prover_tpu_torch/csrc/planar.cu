@@ -1,21 +1,50 @@
-// Planar BN254-Fr kernels for Hopper: KB (one constant-geometry butterfly
-// stage) and KE (element-wise add/sub/Montgomery products).  Operands are
-// limb planes: element i of an (8, X) tensor has limb l at x[l*ls + i],
-// with ls the plane's stride (X for a contiguous tensor).
+// Planar BN254-Fr kernels for Hopper: KB (a pass of constant-geometry
+// butterfly stages) and KE (element-wise add/sub/Montgomery products).
+// Operands are limb planes: element i of an (8, X) tensor has limb l at
+// x[l*ls + i], with ls the plane's stride (X for a contiguous tensor).
 //
 // KB replaces the Pallas TPU kernels _k_butterfly_dit and _k_butterfly_dif
 // (ligero_prover_tpu/ops/pallas/fieldmul.py:238,245) together with the
 // reshapes, concatenate/stack and the (8, B*h) twiddle broadcast around
 // each call in the constant-geometry stage loops
-// (ligero_prover_tpu/ops/ntt.py:328-364).  One launch is one stage over
-// the whole batch, out of place:
+// (ligero_prover_tpu/ops/ntt.py:328-364).  One stage over (8, B, N) rows,
+// N = 2h, L = log2 N:
 //   DIT: a = x[:, b, 2j], c = x[:, b, 2j+1], wc = mont(c, tw[:, j]);
 //        y[:, b, j] = a + wc,  y[:, b, h+j] = a - wc.
 //   DIF: a = x[:, b, j],  c = x[:, b, h+j];
 //        y[:, b, 2j] = a + c,  y[:, b, 2j+1] = mont(a - c, tw[:, j]).
-// A DIT input narrower than the stage (in_n < N) is read tiled, element i
-// being x[:, b, i mod in_n]: that is the zero-extension of the encode
-// (ntt.py:379-381), so no tiled copy is made.
+// A DIT stage moves the butterfly's pair from the positions differing in
+// bit 0 to those differing in bit L-1: it rotates the position's bits
+// right by one.  So s consecutive DIT stages t0..t0+s-1 split into closed
+// groups of M = 2^s elements: group g (of R = N/M per row) reads the
+// contiguous positions g*M + m and, after s stages, writes position
+// m*R + g.  Inside the group the s stages are a constant-geometry
+// transform of size M: after r of them local slot q sits at global
+// position (q >> (s-r))*2^(L-r) + g*2^(s-r) + (q mod 2^(s-r)), so local
+// butterfly jl of local stage r is global butterfly
+//   j = ((jl >> c) << (L-r-1)) | (g << c) | (jl mod 2^c),  c = s-r-1,
+// and takes twiddle tw[t0+r][:, j].  A DIF pass is the transpose: group g
+// reads positions m*R + g, runs local DIF steps for r = s-1 down to 0
+// (stage t0+r, the same j) and writes the contiguous g*M + m.  Every
+// butterfly applies the same add_mod/sub_mod/mont_mul to the same
+// operands as the stage loop; only the order of independent butterflies
+// changes, so a pass equals its s one-stage launches bit for bit.
+//
+// One launch is one pass over the whole batch, out of place.  A CTA owns
+// a tile of kTile elements, G = kTile/M whole groups: it loads the tile
+// into shared memory as eight limb planes (each group padded by one word,
+// so that the strided side's accesses, consecutive groups at one local
+// index, fall in distinct banks), runs the s stages there with one
+// butterfly per thread per stage and a barrier between stages (ping-pong
+// buffers; the next stage's twiddles are read before the barrier), and
+// writes the tile back.  Global accesses: on the contiguous
+// side (DIT read, DIF write) a thread moves 4 consecutive words of a plane
+// (16-byte vectors); on the strided side consecutive groups are
+// consecutive addresses, also moved 4 at a time where a row holds at
+// least 4 groups.  A DIT input narrower than N (in_n < N) is read tiled,
+// element i being x[:, b, i mod in_n]: that is the zero-extension of the
+// encode (ntt.py:379-381), so no tiled copy is made.  With s = 1 a pass
+// is exactly one stage.
 //
 // KE replaces _k_addmod, _k_submod, _k_mont_scalar and _k_mulmod_fma
 // (fieldmul.py:252,256,269,278) and gives _k_mont_mul/_k_mulmod (:260,264)
@@ -29,13 +58,14 @@
 // ~200 32-bit multiply-adds per 96 bytes moved, so KB and KE's product
 // modes are bound by the integer pipes at the main path's shapes (2^18..
 // 2^19 elements), while KE's add/sub modes (~30 integer ops per 96 bytes)
-// are bound by HBM bandwidth.  Design: one thread per butterfly or
-// element, all arithmetic in registers (field.cuh); for every limb plane
-// neighbouring threads touch neighbouring words, so each load and store
-// is coalesced (KB's adjacent pair is one 8-byte access per limb); the
-// twiddle is read from its (8, N/2) stage plane, never broadcast in
-// memory.  Index math is 32-bit: the wrappers keep every plane offset
-// below 2^32.
+// are bound by HBM bandwidth.  A one-stage KB launch moves 64 bytes per
+// butterfly through L2/HBM; a pass of s stages moves them once for s
+// butterflies, so a whole transform (13-15 stages in 3 passes) is bound
+// by the integer instructions of field.cuh's mont_mul, issued at about
+// half the SM's rate as in KE (PERF.md has the times).  Design: one thread per butterfly or element,
+// all arithmetic in registers (field.cuh); the twiddle is read from its
+// (8, N/2) stage plane, never broadcast in memory.  Index math is 32-bit:
+// the wrappers keep every plane offset below 2^32.
 
 #include "field.cuh"
 
@@ -45,62 +75,217 @@ using namespace ligero_fm;
 
 enum { kAdd = 0, kSub = 1, kMont = 2, kMulmod = 3, kScalar = 4, kFma = 5 };
 
-LIGERO_HD void load_pair(const uint32_t* p, uint32_t& a, uint32_t& b) {
+// ---- KB: a pass of s constant-geometry stages ------------------------------
+
+// The pass geometry helpers are also called by the host entry point.
 #ifdef __CUDACC__
-  uint2 v = *(const uint2*)p;
-  a = v.x; b = v.y;
+#define LIGERO_HHD __host__ __device__ __forceinline__
 #else
-  a = p[0]; b = p[1];
+#define LIGERO_HHD static inline
+#endif
+
+// A tile of 256 elements, one thread per butterfly: 128 threads.  At the
+// main path's 5-stage passes that is 8 groups per tile, so the strided
+// side moves 32-byte runs, one DRAM sector.
+enum { kLog2Tile = 8, kTile = 1 << kLog2Tile, kPassThreads = kTile / 2,
+       kMaxPass = kLog2Tile };
+
+// One pass over (8, B, N) rows: s stages, N = 2^log2n; x has rows of
+// in_n elements (a power of two <= N, read tiled, for DIT; N for DIF);
+// vec: move 4 words per global access (see pass_vec).
+struct PassGeom {
+  uint32_t B, log2n, s, in_n, vec;
+};
+
+// Words per limb plane of a tile in shared memory: kTile plus one pad
+// word per group.
+LIGERO_HHD uint32_t pass_plane(uint32_t s) { return kTile + (kTile >> s); }
+
+// Whether 4-word global accesses are valid on both sides: the contiguous
+// side needs groups and the read width of at least 4 elements, the strided
+// side at least 4 groups per tile and per row (s <= L-2), and both sides
+// 16-byte aligned planes (the caller checks the pointers).
+LIGERO_HHD uint32_t pass_vec(uint32_t log2n, uint32_t s, uint32_t in_n) {
+  return s >= 2u && s + 2u <= log2n && s + 2u <= (uint32_t)kLog2Tile &&
+         in_n >= 4u;
+}
+
+// I/O unit u of tile `tile` (u < kTile/V, V = 4 if pg.vec else 1): V
+// elements of one limb plane that are consecutive in global memory.  On the
+// contiguous side (`contig`: the DIT read, the DIF write) they are V local
+// slots of one group; on the strided side the same local slot of V
+// consecutive groups.  Sets the global offset of the first element inside
+// its limb plane (rows of in_n elements on the contiguous side, of N on
+// the strided side), the first shared-memory slot and the slot step; false
+// past the last group.
+LIGERO_HD bool pass_unit(const PassGeom& pg, uint32_t tile, uint32_t u,
+                         bool contig, uint32_t& off, uint32_t& slot,
+                         uint32_t& step) {
+  const uint32_t s = pg.s, m = 1u << s, lg_g = (uint32_t)kLog2Tile - s;
+  const uint32_t lg_r = pg.log2n - s;
+  const uint32_t e = pg.vec ? u << 2 : u;
+  uint32_t gl, q;
+  if (contig) {
+    gl = e >> s;
+    q = e & (m - 1u);
+  } else {
+    gl = e & ((1u << lg_g) - 1u);
+    q = e >> lg_g;
+  }
+  const uint32_t gi = (tile << lg_g) + gl;
+  if (gi >= (pg.B << lg_r)) return false;
+  const uint32_t b = gi >> lg_r, g = gi & ((1u << lg_r) - 1u);
+  if (contig) {
+    const uint32_t p = (g << s) | q;
+    off = b * pg.in_n + (p & (pg.in_n - 1u));
+    step = 1u;
+  } else {
+    off = (b << pg.log2n) + (q << lg_r) + g;
+    step = m + 1u;
+  }
+  slot = gl * (m + 1u) + q;
+  return true;
+}
+
+LIGERO_HD void load4(const uint32_t* p, uint32_t v[4]) {
+#ifdef __CUDACC__
+  const uint4 w = *(const uint4*)p;
+  v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+#else
+  for (int i = 0; i < 4; ++i) v[i] = p[i];
 #endif
 }
 
-LIGERO_HD void store_pair(uint32_t* p, uint32_t a, uint32_t b) {
+LIGERO_HD void store4(uint32_t* p, const uint32_t v[4]) {
 #ifdef __CUDACC__
-  *(uint2*)p = make_uint2(a, b);
+  *(uint4*)p = make_uint4(v[0], v[1], v[2], v[3]);
 #else
-  p[0] = a; p[1] = b;
+  for (int i = 0; i < 4; ++i) p[i] = v[i];
 #endif
 }
 
-// Butterfly i = b*h + j of one stage: x is (8, B, in_n) for DIT (in_n a
-// power of two dividing N) and (8, B, N) for DIF; tw (8, h); y (8, B, N);
-// h = 2^log2h, N = 2h.
+// Load I/O unit u of a tile from x into the shared planes sm.  DIT reads
+// the contiguous side (tiled at width in_n), DIF the strided side.
 template <bool kDit>
-LIGERO_HD void stage_at(const uint32_t* x, const uint32_t* tw, uint32_t* y,
-                        uint32_t B, int log2h, uint32_t in_n, uint32_t i) {
-  const uint32_t h = 1u << log2h, n = 2u * h;
-  const uint32_t b = i >> log2h, j = i & (h - 1u);
-  const uint32_t y_plane = B * n, row = b * n;
-  uint32_t u[8], v[8], w[8], r0[8], r1[8];
+LIGERO_HD void pass_load_at(const uint32_t* x, uint32_t* sm,
+                            const PassGeom& pg, uint32_t tile, uint32_t u) {
+  uint32_t off, slot, step;
+  if (!pass_unit(pg, tile, u, kDit, off, slot, step)) return;
+  const uint32_t plane = pg.B * pg.in_n;
+  const uint32_t sp = pass_plane(pg.s);
+  if (pg.vec) {
 #pragma unroll
-  for (int l = 0; l < 8; ++l) w[l] = tw[l * h + j];
+    for (int l = 0; l < 8; ++l) {
+      uint32_t v[4];
+      load4(x + l * plane + off, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sm[l * sp + slot + i * step] = v[i];
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) sm[l * sp + slot] = x[l * plane + off];
+  }
+}
+
+// Store I/O unit u of a tile from the shared planes sm into y (8, B, N).
+// DIT writes the strided side, DIF the contiguous side.
+template <bool kDit>
+LIGERO_HD void pass_store_at(const uint32_t* sm, uint32_t* y,
+                             const PassGeom& pg, uint32_t tile, uint32_t u) {
+  uint32_t off, slot, step;
+  if (!pass_unit(pg, tile, u, !kDit, off, slot, step)) return;
+  const uint32_t plane = pg.B << pg.log2n;
+  const uint32_t sp = pass_plane(pg.s);
+  if (pg.vec) {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = sm[l * sp + slot + i * step];
+      store4(y + l * plane + off, v);
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) y[l * plane + off] = sm[l * sp + slot];
+  }
+}
+
+// Butterfly bf (< kTile/2) of local stage r of a tile: its group gl in the
+// tile, its local index jl and its global twiddle index j; false past the
+// last group.  Threads take butterflies in the order of j: the c = s-r-1
+// low bits of jl fastest, then the group, then the high bits of jl, so a
+// warp's twiddle reads are runs of 2^c * G consecutive words (G groups
+// per tile) at every stage instead of 32 scattered words at the last.
+LIGERO_HD bool pass_butterfly(const PassGeom& pg, uint32_t tile, uint32_t r,
+                              uint32_t bf, uint32_t& gl, uint32_t& jl,
+                              uint32_t& j) {
+  const uint32_t s = pg.s, c = s - r - 1u;
+  const uint32_t lg_g = (uint32_t)kLog2Tile - s, lg_r = pg.log2n - s;
+  const uint32_t lo = bf & ((1u << c) - 1u), rest = bf >> c;
+  gl = rest & ((1u << lg_g) - 1u);
+  jl = ((rest >> lg_g) << c) | lo;
+  const uint32_t gi = (tile << lg_g) + gl;
+  if (gi >= (pg.B << lg_r)) return false;
+  const uint32_t g = gi & ((1u << lg_r) - 1u);
+  j = ((jl >> c) << (pg.log2n - r - 1u)) | (g << c) | lo;
+  return true;
+}
+
+// The twiddle of butterfly bf of local stage r: tw points at stage t0's
+// (8, N/2) twiddle plane, the pass's stages following at a stride of
+// 8*N/2 words.  Left unread past the last group.
+LIGERO_HD void pass_twiddle_at(const uint32_t* tw, const PassGeom& pg,
+                               uint32_t tile, uint32_t r, uint32_t bf,
+                               uint32_t w[8]) {
+  uint32_t gl, jl, j;
+  if (!pass_butterfly(pg, tile, r, bf, gl, jl, j)) return;
+  const uint32_t h = 1u << (pg.log2n - 1u);
+  const uint32_t* tws = tw + r * 8u * h;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) w[l] = tws[l * h + j];
+}
+
+// Butterfly bf of local stage r, twiddle w: from the shared planes cur
+// into nxt.
+template <bool kDit>
+LIGERO_HD void pass_step_at(const uint32_t* cur, uint32_t* nxt,
+                            const PassGeom& pg, uint32_t tile, uint32_t r,
+                            uint32_t bf, const uint32_t w[8]) {
+  uint32_t gl, jl, j;
+  if (!pass_butterfly(pg, tile, r, bf, gl, jl, j)) return;
+  const uint32_t s = pg.s, half = 1u << (s - 1u);
+  const uint32_t sp = pass_plane(s), base = gl * ((1u << s) + 1u);
+  uint32_t u[8], v[8], r0[8], r1[8];
   if (kDit) {
-    const uint32_t x_plane = B * in_n;
-    const uint32_t src = b * in_n + ((2u * j) & (in_n - 1u));
 #pragma unroll
-    for (int l = 0; l < 8; ++l) load_pair(x + l * x_plane + src, u[l], v[l]);
+    for (int l = 0; l < 8; ++l) {
+      u[l] = cur[l * sp + base + 2u * jl];
+      v[l] = cur[l * sp + base + 2u * jl + 1u];
+    }
     uint32_t wv[8];
     mont_mul(v, w, wv);
     add_mod(u, wv, r0);
     sub_mod(u, wv, r1);
 #pragma unroll
     for (int l = 0; l < 8; ++l) {
-      y[l * y_plane + row + j] = r0[l];
-      y[l * y_plane + row + h + j] = r1[l];
+      nxt[l * sp + base + jl] = r0[l];
+      nxt[l * sp + base + half + jl] = r1[l];
     }
   } else {
 #pragma unroll
     for (int l = 0; l < 8; ++l) {
-      u[l] = x[l * y_plane + row + j];
-      v[l] = x[l * y_plane + row + h + j];
+      u[l] = cur[l * sp + base + jl];
+      v[l] = cur[l * sp + base + half + jl];
     }
     uint32_t d[8];
     add_mod(u, v, r0);
     sub_mod(u, v, d);
     mont_mul(d, w, r1);
 #pragma unroll
-    for (int l = 0; l < 8; ++l)
-      store_pair(y + l * y_plane + row + 2u * j, r0[l], r1[l]);
+    for (int l = 0; l < 8; ++l) {
+      nxt[l * sp + base + 2u * jl] = r0[l];
+      nxt[l * sp + base + 2u * jl + 1u] = r1[l];
+    }
   }
 }
 
@@ -148,16 +333,34 @@ LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
 
 namespace ligero_pl {
 
+// One tile per CTA: load, s stages with a barrier after each, store.
 template <bool kDit>
-__global__ void __launch_bounds__(256)
-stage_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
-             uint32_t* __restrict__ y, uint32_t B, int log2h,
-             uint32_t in_n) {
-  const uint32_t total = B << log2h;
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride)
-    stage_at<kDit>(x, tw, y, B, log2h, in_n, i);
+__global__ void __launch_bounds__(kPassThreads)
+pass_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
+            uint32_t* __restrict__ y, PassGeom pg) {
+  extern __shared__ uint32_t sm[];
+  uint32_t* cur = sm;
+  uint32_t* nxt = sm + 8u * pass_plane(pg.s);
+  const uint32_t tile = blockIdx.x, units = pg.vec ? kTile / 4 : kTile;
+  for (uint32_t u = threadIdx.x; u < units; u += kPassThreads)
+    pass_load_at<kDit>(x, cur, pg, tile, u);
+  // each stage's twiddle is read before the barrier that ends the stage
+  // before it, so its L2 latency overlaps the wait
+  uint32_t w[8];
+  pass_twiddle_at(tw, pg, tile, kDit ? 0u : pg.s - 1u, threadIdx.x, w);
+  __syncthreads();
+  for (uint32_t i = 0; i < pg.s; ++i) {
+    const uint32_t r = kDit ? i : pg.s - 1u - i;
+    pass_step_at<kDit>(cur, nxt, pg, tile, r, threadIdx.x, w);
+    if (i + 1u < pg.s)
+      pass_twiddle_at(tw, pg, tile, kDit ? r + 1u : r - 1u, threadIdx.x, w);
+    __syncthreads();
+    uint32_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (uint32_t u = threadIdx.x; u < units; u += kPassThreads)
+    pass_store_at<kDit>(cur, y, pg, tile, u);
 }
 
 template <int kMode>
@@ -184,32 +387,45 @@ inline unsigned grid_for(unsigned long long work) {
 
 }  // namespace ligero_pl
 
-// One constant-geometry stage (KB).  x: (8, B, in_n) for DIT, (8, B, 2h)
-// for DIF; tw: (8, h); y: (8, B, 2h), not aliasing x.  All contiguous and
-// 8-byte aligned; in_n a power of two in [2, 2h] (DIT); 8*B*2h < 2^32.
+// One pass of KB: s constant-geometry stages.  x: (8, B, in_n) for DIT
+// (in_n a power of two in [2, N]), (8, B, N) for DIF; tw: the (8, N/2)
+// twiddle plane of stage t0, the planes of stages t0+1..t0+s-1 following
+// it contiguously; y: (8, B, N), not aliasing x.  N = 2^log2n; 1 <= s <=
+// min(log2n, 8); a DIT pass runs stages t0..t0+s-1, a DIF pass stages
+// t0+s-1 down to t0.  Contiguous, 4-byte aligned; 8*B*N < 2^32.
 // Returns cudaGetLastError().
-extern "C" int ligero_planar_stage(const void* x, const void* tw, void* y,
-                                   int B, int log2h, int in_n, int dit,
-                                   void* stream) {
-  if (B < 0 || log2h < 0 || log2h > 24) return (int)cudaErrorInvalidValue;
-  const unsigned long long n = 2ull << log2h;
+extern "C" int ligero_planar_pass(const void* x, const void* tw, void* y,
+                                  int B, int log2n, int in_n, int s, int dit,
+                                  void* stream) {
+  if (B < 0 || log2n < 1 || log2n > 24 || s < 1 || s > log2n ||
+      s > ligero_pl::kMaxPass)
+    return (int)cudaErrorInvalidValue;
+  const unsigned long long n = 1ull << log2n;
   if (8ull * (unsigned long long)B * n >= (1ull << 32))
     return (int)cudaErrorInvalidValue;
-  if (dit && (in_n < 2 || (in_n & (in_n - 1)) != 0 ||
-              (unsigned long long)in_n > n))
+  if (!dit) in_n = (int)n;
+  if (in_n < 2 || (in_n & (in_n - 1)) != 0 || (unsigned long long)in_n > n)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const unsigned long long work = (unsigned long long)B << log2h;
-  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned =
+      ((unsigned long long)x % 16 == 0) && ((unsigned long long)y % 16 == 0);
+  const ligero_pl::PassGeom pg = {
+      (uint32_t)B, (uint32_t)log2n, (uint32_t)s, (uint32_t)in_n,
+      aligned ? ligero_pl::pass_vec(log2n, s, in_n) : 0u};
+  const unsigned tiles =
+      (unsigned)(((unsigned long long)B * n + ligero_pl::kTile - 1) /
+                 ligero_pl::kTile);
+  const size_t smem = 2 * 8 * sizeof(uint32_t) * ligero_pl::pass_plane(s);
+  cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* xp = (const uint32_t*)x;
   const uint32_t* tp = (const uint32_t*)tw;
   uint32_t* yp = (uint32_t*)y;
   if (dit)
-    ligero_pl::stage_kernel<true><<<ligero_pl::grid_for(work), 256, 0, s>>>(
-        xp, tp, yp, (uint32_t)B, log2h, (uint32_t)in_n);
+    ligero_pl::pass_kernel<true><<<tiles, ligero_pl::kPassThreads, smem, st>>>(
+        xp, tp, yp, pg);
   else
-    ligero_pl::stage_kernel<false><<<ligero_pl::grid_for(work), 256, 0, s>>>(
-        xp, tp, yp, (uint32_t)B, log2h, (uint32_t)n);
+    ligero_pl::pass_kernel<false><<<tiles, ligero_pl::kPassThreads, smem,
+                                    st>>>(xp, tp, yp, pg);
   return (int)cudaGetLastError();
 }
 

@@ -39,8 +39,9 @@ SIGNATURES = {
     # (B, C, 8)), stream
     "ligero_sha256_absorb": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                              _I32, _P),
-    # x, tw, y, B, log2(N/2), in_n (DIT input width), dit, stream
-    "ligero_planar_stage": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
+    # x, tw (stage t0's plane), y, B, log2(N), in_n (DIT input width),
+    # s (stages in the pass), dit, stream
+    "ligero_planar_pass": (_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P),
     # x, x_limb_stride, y, y_limb_stride, y_div, z, z_limb_stride, out, n,
     # mode (0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar,
     # 5 mulmod_fma: z + x*y; z is read in mode 5 only), stream

@@ -1,7 +1,8 @@
 """BN254-Fr field kernels: K1 (``mont_mul``) and K2 (``mulmod``) over AoS
-(..., 8) limbs, and the planar family over (8, ...) limb planes: KB (one
-constant-geometry butterfly stage, ``butterfly_dit``/``butterfly_dif``)
-and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
+(..., 8) limbs, and the planar family over (8, ...) limb planes: KB (a pass
+of s constant-geometry butterfly stages, ``butterfly_dit_pass``/
+``butterfly_dif_pass``; ``butterfly_dit``/``butterfly_dif`` are its
+one-stage case) and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
 ``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``).
 
 Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
@@ -26,7 +27,8 @@ identical on every input, including operands in [p, 2^256):
   addmod:   x + y mod 2^256, one conditional subtract p.
   submod:   x - y mod 2^256, + p (mod 2^256) on borrow.
 
-The planar butterflies take a whole batch of rows per call.  Where the
+The planar butterflies take a whole batch of rows per call, and a pass
+takes s consecutive stages of one transform in one launch.  Where the
 reference's ``butterfly_dit(a, b, w)`` returns the two halves of one
 stage, :func:`butterfly_dit` maps x (8, B, N) to the stage's output
 y (8, B, N); at B = 1, with x interleaving a and b (x[2j] = a[j],
@@ -53,7 +55,9 @@ PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
 FMA = "mulmod_fma_planar"     # KE's three-operand mode: acc + x*y
 FMA_MODE = 5
-STAGES = ("butterfly_dit", "butterfly_dif")
+STAGES = ("butterfly_dit", "butterfly_dif")   # KB: counted once per pass
+MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
+#                         shared-memory tile (csrc/planar.cu, kLog2Tile)
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
                                  *PLANAR_MODE, FMA)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
@@ -261,10 +265,7 @@ def mulmod_fma_planar_plain(acc, x, y):
     return _on_planes(fo.addmod, acc, prod)
 
 
-def butterfly_dit_plain(x, tw):
-    """Plain version of KB, DIT: x (8, B, w) -> (8, B, N), N = 2*tw.shape[1];
-    a narrower x is tiled to N first (the zero-extension of the encode)."""
-    PLAIN_CALLS["butterfly_dit"][x.device.type] += 1
+def _dit_stage(x, tw):
     h = tw.shape[1]
     if x.shape[2] != 2 * h:
         x = x.repeat(1, 1, 2 * h // x.shape[2])
@@ -275,14 +276,42 @@ def butterfly_dit_plain(x, tw):
                       _on_planes(fo.submod, a, wb)], dim=2)
 
 
-def butterfly_dif_plain(x, tw):
-    """Plain version of KB, DIF: x (8, B, N) -> (8, B, N)."""
-    PLAIN_CALLS["butterfly_dif"][x.device.type] += 1
+def _dif_stage(x, tw):
     h = tw.shape[1]
     a, b = x[:, :, :h], x[:, :, h:]
     s = _on_planes(fo.addmod, a, b)
     d = _on_planes(_mont_plain, _on_planes(fo.submod, a, b), tw[:, None, :])
     return torch.stack([s, d], dim=3).reshape(x.shape)
+
+
+def butterfly_dit_plain(x, tw):
+    """Plain version of KB, DIT: x (8, B, w) -> (8, B, N), N = 2*tw.shape[1];
+    a narrower x is tiled to N first (the zero-extension of the encode)."""
+    PLAIN_CALLS["butterfly_dit"][x.device.type] += 1
+    return _dit_stage(x, tw)
+
+
+def butterfly_dif_plain(x, tw):
+    """Plain version of KB, DIF: x (8, B, N) -> (8, B, N)."""
+    PLAIN_CALLS["butterfly_dif"][x.device.type] += 1
+    return _dif_stage(x, tw)
+
+
+def butterfly_dit_pass_plain(x, tws, t0: int, s: int):
+    """Plain version of a KB DIT pass: the DIT stages t0..t0+s-1 of the
+    (S, 8, N/2) stage table `tws`, in order, one after the other."""
+    PLAIN_CALLS["butterfly_dit"][x.device.type] += 1
+    for t in range(t0, t0 + s):
+        x = _dit_stage(x, tws[t])
+    return x
+
+
+def butterfly_dif_pass_plain(x, tws, t0: int, s: int):
+    """Plain version of a KB DIF pass: the DIF stages t0+s-1 down to t0."""
+    PLAIN_CALLS["butterfly_dif"][x.device.type] += 1
+    for t in range(t0 + s - 1, t0 - 1, -1):
+        x = _dif_stage(x, tws[t])
+    return x
 
 
 # ---- planar family: kernel wrappers --------------------------------------
@@ -361,20 +390,27 @@ def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
     return out
 
 
-def _stage(name: str, x: torch.Tensor, tw: torch.Tensor,
-           out: torch.Tensor | None) -> torch.Tensor:
-    _check_operands(name, x, tw)
+def _pass(name: str, x: torch.Tensor, tws: torch.Tensor, t0: int, s: int,
+          out: torch.Tensor | None) -> torch.Tensor:
+    _check_operands(name, x)
     dit = name == "butterfly_dit"
-    if x.dim() != 3 or tw.dim() != 2:
-        raise ValueError(f"{name}: x must be (8, B, N) and tw (8, N/2), got "
-                         f"{tuple(x.shape)} and {tuple(tw.shape)}")
-    h, (b_, w) = tw.shape[1], x.shape[1:]
+    if x.dim() != 3 or tws.dim() != 3 or tws.shape[1] != NLIMB:
+        raise ValueError(f"{name}: x must be (8, B, N) and tws (S, 8, N/2), "
+                         f"got {tuple(x.shape)} and {tuple(tws.shape)}")
+    _check_operands(name, x, tws[0])
+    h, (b_, w) = tws.shape[2], x.shape[1:]
     n = 2 * h
+    log2n = n.bit_length() - 1
     if h & (h - 1) or (w != n if not dit else
                        (w < 2 or w & (w - 1) or w > n)):
-        raise ValueError(f"{name}: bad widths x {tuple(x.shape)}, tw "
-                         f"{tuple(tw.shape)}")
-    x, tw = x.contiguous(), tw.contiguous()
+        raise ValueError(f"{name}: bad widths x {tuple(x.shape)}, tws "
+                         f"{tuple(tws.shape)}")
+    if not (1 <= s <= min(log2n, MAX_PASS) and 0 <= t0
+            and t0 + s <= tws.shape[0]):
+        raise ValueError(f"{name}: stages {t0}..{t0 + s - 1} are not a pass "
+                         f"of at most {min(log2n, MAX_PASS)} stages of "
+                         f"{tws.shape[0]}")
+    x, tws = x.contiguous(), tws.contiguous()
     if out is None:
         out = torch.empty((NLIMB, b_, n), dtype=torch.int32, device=x.device)
     elif out.shape != (NLIMB, b_, n) or out.dtype != torch.int32 \
@@ -383,11 +419,9 @@ def _stage(name: str, x: torch.Tensor, tw: torch.Tensor,
         raise ValueError(f"{name}: `out` must be a contiguous int32 "
                          f"(8, {b_}, {n}) tensor on {x.device}, apart "
                          f"from x")
-    if x.data_ptr() % 8 or out.data_ptr() % 8:
-        raise ValueError(f"{name}: x and out must be 8-byte aligned")
-    rc = kernels.lib().ligero_planar_stage(
-        x.data_ptr(), tw.data_ptr(), out.data_ptr(), b_, h.bit_length() - 1,
-        w, int(dit), kernels.stream_handle(x.device))
+    rc = kernels.lib().ligero_planar_pass(
+        x.data_ptr(), tws[t0].data_ptr(), out.data_ptr(), b_, log2n, w, s,
+        int(dit), kernels.stream_handle(x.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -397,24 +431,45 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _into(y, out):
+    return y if out is None else out.copy_(y)
+
+
 def butterfly_dit(x, tw, out=None):
-    """KB, DIT: one constant-geometry stage over a batch of rows.
+    """KB, DIT: one constant-geometry stage over a batch of rows (a pass
+    of one stage).
 
     x (8, B, w) bit-reversed-flow input, tw (8, N/2) the stage's twiddles
     in Montgomery form, result (8, B, N) (written into `out` when given,
     which must not be x).  w < N reads x tiled (zero-extension)."""
     if _on_cpu(x, tw):
-        y = butterfly_dit_plain(x, tw)
-        return y if out is None else out.copy_(y)
-    return _stage("butterfly_dit", x, tw, out)
+        return _into(butterfly_dit_plain(x, tw), out)
+    return _pass("butterfly_dit", x, tw[None], 0, 1, out)
 
 
 def butterfly_dif(x, tw, out=None):
     """KB, DIF: one constant-geometry stage, x (8, B, N) -> (8, B, N)."""
     if _on_cpu(x, tw):
-        y = butterfly_dif_plain(x, tw)
-        return y if out is None else out.copy_(y)
-    return _stage("butterfly_dif", x, tw, out)
+        return _into(butterfly_dif_plain(x, tw), out)
+    return _pass("butterfly_dif", x, tw[None], 0, 1, out)
+
+
+def butterfly_dit_pass(x, tws, t0: int, s: int, out=None):
+    """KB, DIT pass: the DIT stages t0..t0+s-1 of the (S, 8, N/2) stage
+    table `tws` in one launch (1 <= s <= min(log2 N, MAX_PASS)).  x
+    (8, B, w) as for :func:`butterfly_dit`; the result (8, B, N) equals
+    the s one-stage calls limb for limb."""
+    if _on_cpu(x, tws):
+        return _into(butterfly_dit_pass_plain(x, tws, t0, s), out)
+    return _pass("butterfly_dit", x, tws, t0, s, out)
+
+
+def butterfly_dif_pass(x, tws, t0: int, s: int, out=None):
+    """KB, DIF pass: the DIF stages t0+s-1 down to t0 of `tws` in one
+    launch, x (8, B, N) -> (8, B, N)."""
+    if _on_cpu(x, tws):
+        return _into(butterfly_dif_pass_plain(x, tws, t0, s), out)
+    return _pass("butterfly_dif", x, tws, t0, s, out)
 
 
 def addmod_planar(x, y):

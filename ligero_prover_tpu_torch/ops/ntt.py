@@ -19,10 +19,12 @@ product and values stay in the plain domain.
 
 The AoS path holds rows as (B, N, 8) and runs a stage as K1 (``mont_mul``)
 plus the plain limb ``addmod``/``submod``.  The planar path holds them as
-(8, B, N) limb planes and runs a stage as one launch of KB
-(``fieldmul.butterfly_dit``/``butterfly_dif``) into ping-pong buffers
-allocated once per scan; the zero-extension tile is read in place by the
-first DIT stage.  :data:`USE_PLANAR` selects the path: None (auto) means
+(8, B, N) limb planes and runs a transform as a few passes
+(:func:`pass_plan`), each one launch of KB
+(``fieldmul.butterfly_dit_pass``/``butterfly_dif_pass``) that takes up to
+`max_pass` consecutive stages through shared memory, into ping-pong
+buffers allocated once per scan; the zero-extension tile is read in place
+by the first DIT pass.  ``max_pass=1`` is the one-stage-per-launch path.  :data:`USE_PLANAR` selects the path: None (auto) means
 planar for CUDA tensors and AoS for CPU tensors, the reference's "planar
 off the CPU" rule (``ntt.py:174-182``) applied per device.
 
@@ -41,6 +43,8 @@ Mathematical contract:
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -67,6 +71,13 @@ USE_MXU: bool | None = None      # None = auto, see MXU_ON_CUDA
 # not measured faster than the butterflies (PERF.md, section 6, has the
 # walls, the card and its power limit).  CPU tensors: always off.
 MXU_ON_CUDA = False
+
+
+# Most stages per KB pass on the planar path: 13-15 stages (every
+# transform at k=8192) take 3 passes, and a pass's group of 2^5 elements
+# leaves 8 groups per 256-element tile, so the strided side of a pass
+# moves 32-byte runs.
+LARGEST_PASS = 5
 
 
 def _mxu_use(device) -> bool:
@@ -180,41 +191,72 @@ def decode_rows_cg(codewords, dom_k, dom_n, k: int):
     return torch.cat([evals, coeffs_nat[:, k:]], dim=1)
 
 
-def _cg_dit_scan_planar(x, tws_pl, first_stage: int = 0):
+@functools.lru_cache(maxsize=None)
+def pass_plan(log2n: int, first_stage: int, count: int,
+              max_pass: int) -> tuple[tuple[int, int], ...]:
+    """The KB passes of `count` stages from `first_stage` of an N = 2^log2n
+    transform: (t0, s) pairs covering the stages in ascending order, each
+    s <= max_pass (and <= log2n), the fewest passes, sizes as even as
+    possible (larger first).  DIT runs them in this order, DIF in reverse.
+    Cached per geometry."""
+    largest = min(max_pass, log2n, fm.MAX_PASS)
+    if count < 0 or first_stage < 0 or first_stage + count > log2n \
+            or largest < 1:
+        raise ValueError(f"no pass plan for stages {first_stage}.."
+                         f"{first_stage + count - 1} of 2^{log2n} with "
+                         f"passes of at most {max_pass}")
+    passes = -(-count // largest)
+    plan, t0 = [], first_stage
+    for i in range(passes):
+        s = count // passes + (i < count % passes)
+        plan.append((t0, s))
+        t0 += s
+    return tuple(plan)
+
+
+def _cg_dit_scan_planar(x, tws_pl, first_stage: int = 0,
+                        max_pass: int = LARGEST_PASS):
     """Planar twin of :func:`_cg_dit_scan`: x (8, B, w) bit-reversed ->
     (8, B, N) natural with N = 2 * tws_pl.shape[2], tws_pl
-    (log2N, 8, N/2).  A narrower x (w < N) is the head of its own tile:
-    the first stage reads it tiled, so the skipped identity stages
-    (before `first_stage`) and the tile cost nothing."""
-    n = 2 * tws_pl.shape[2]
-    bufs = [torch.empty((NLIMB, x.shape[1], n), dtype=torch.int32,
-                        device=x.device) for _ in range(2)]
-    for i, t in enumerate(range(first_stage, tws_pl.shape[0])):
-        x = fm.butterfly_dit(x, tws_pl[t], out=bufs[i % 2])
+    (log2N, 8, N/2), by the passes of :func:`pass_plan`.  A narrower x
+    (w < N) is the head of its own tile: the first pass reads it tiled, so
+    the skipped identity stages (before `first_stage`) and the tile cost
+    nothing."""
+    log2n = tws_pl.shape[0]
+    plan = pass_plan(log2n, first_stage, log2n - first_stage, max_pass)
+    bufs = [torch.empty((NLIMB, x.shape[1], 2 * tws_pl.shape[2]),
+                        dtype=torch.int32, device=x.device)
+            for _ in range(min(len(plan), 2))]
+    for i, (t0, s) in enumerate(plan):
+        x = fm.butterfly_dit_pass(x, tws_pl, t0, s, out=bufs[i % 2])
     return x
 
 
-def _cg_dif_scan_planar(x, tws_pl):
+def _cg_dif_scan_planar(x, tws_pl, max_pass: int = LARGEST_PASS):
     """Planar twin of :func:`_cg_dif_scan`: x (8, B, N) natural ->
-    bit-reversed; consumes tws_pl back to front."""
-    bufs = [torch.empty_like(x) for _ in range(2)]
-    for i, t in enumerate(range(tws_pl.shape[0] - 1, -1, -1)):
-        x = fm.butterfly_dif(x, tws_pl[t], out=bufs[i % 2])
+    bit-reversed; consumes tws_pl back to front, by the passes of
+    :func:`pass_plan` in reverse."""
+    log2n = tws_pl.shape[0]
+    plan = pass_plan(log2n, 0, log2n, max_pass)
+    bufs = [torch.empty_like(x) for _ in range(min(len(plan), 2))]
+    for i, (t0, s) in enumerate(reversed(plan)):
+        x = fm.butterfly_dif_pass(x, tws_pl, t0, s, out=bufs[i % 2])
     return x
 
 
-def encode_rows_cg_planar_core(rows, dom_msg, dom_n, n: int):
+def encode_rows_cg_planar_core(rows, dom_msg, dom_n, n: int,
+                               max_pass: int = LARGEST_PASS):
     """Planar encode: (B, w, 8) rows -> (8, B, n) limb-plane codewords
-    (iNTT_w by DIF, scale by 1/w, zero-extend, NTT_n by DIT).  Callers that
-    consume planes (the SHA absorb, the check accumulators) skip the
-    transpose back."""
+    (iNTT_w by DIF, scale by 1/w, zero-extend, NTT_n by DIT), in KB passes
+    of at most `max_pass` stages.  Callers that consume planes (the SHA
+    absorb, the check accumulators) skip the transpose back."""
     w = rows.shape[1]
     x = _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
-                            dom_msg["cg_inv_pl"])
+                            dom_msg["cg_inv_pl"], max_pass)
     x = fm.mont_mul_scalar_planar(x, dom_msg["n_inv_mont"])
     ratio = n // w
     return _cg_dit_scan_planar(x, dom_n["cg_fwd_pl"],
-                               first_stage=ratio.bit_length() - 1)
+                               ratio.bit_length() - 1, max_pass)
 
 
 def encode_rows_cg_planar(rows, dom_msg, dom_n, n: int):
@@ -223,18 +265,19 @@ def encode_rows_cg_planar(rows, dom_msg, dom_n, n: int):
         .movedim(0, -1).contiguous()
 
 
-def decode_rows_cg_planar(codewords, dom_k, dom_n, k: int):
+def decode_rows_cg_planar(codewords, dom_k, dom_n, k: int,
+                          max_pass: int = LARGEST_PASS):
     """Planar decode; same contract as :func:`decode_rows_cg`.  The fold's
     lanes 0 and 2 are strided views of the coefficients, made contiguous
     for KE."""
     b_, n = codewords.shape[0], codewords.shape[1]
     assert n == 4 * k
     x = _cg_dif_scan_planar(codewords.movedim(-1, 0).contiguous(),
-                            dom_n["cg_inv_pl"])
+                            dom_n["cg_inv_pl"], max_pass)
     x = fm.mont_mul_scalar_planar(x, dom_n["n_inv_mont"])
     v = x.reshape(NLIMB, b_, k, 4)
     folded = fm.addmod_planar(v[..., 0].contiguous(), v[..., 2].contiguous())
-    evals = _cg_dit_scan_planar(folded, dom_k["cg_fwd_pl"])
+    evals = _cg_dit_scan_planar(folded, dom_k["cg_fwd_pl"], 0, max_pass)
     coeffs_nat = x.movedim(0, -1).index_select(1, dom_n["rev"])
     return torch.cat([evals.movedim(0, -1), coeffs_nat[:, k:]], dim=1)
 

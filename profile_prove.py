@@ -146,7 +146,12 @@ def profile_config(name: str, rounds: int) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         kernel_us = sum(_device_time_us(e) for e in dev)
         n_kernels = sum(e.count for e in dev)
+        kb_us = sum(_device_time_us(e) for e in dev
+                    if "ligero_pl::pass_kernel" in e.key)
         out.update(device_kernel_s=kernel_us / 1e6,
+                   kb_device_s=kb_us / 1e6,
+                   kb_launches=sum(e.count for e in dev
+                                   if "ligero_pl::pass_kernel" in e.key),
                    device_busy_share=kernel_us / 1e6 / wall,
                    device_kernels=n_kernels,
                    device_kernels_per_row=n_kernels / res.num_rows,

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod), K3
-(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly stages)
+(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly passes)
 and KE (planar element-wise ops) against their plain PyTorch versions, the
 golden Python-int model and hashlib; the executor (planar, the CUDA
 default, and AoS) and a whole proof on the card against the same on the
@@ -188,6 +188,36 @@ def test_planar_stage_matches_plain(cuda_device, dit, b, w, h):
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), plain(x.cpu(), tw.cpu()))
     assert tfm.LAUNCHES[kernel.__name__] == before + 1
+
+
+@pytest.mark.parametrize("dit,b,w,log2n", [(True, 3, 2048, 11),
+                                           (True, 2, 256, 11),
+                                           (True, 1, 2, 3),
+                                           (False, 3, 2048, 11),
+                                           (False, 5, 8, 3)])
+def test_planar_passes_match_plain(cuda_device, dit, b, w, log2n):
+    """Every pass (t0, s) of the transform, s up to 8, against the plain
+    pass; odd batches leave the last tile partial."""
+    gen = np.random.default_rng(b * w + log2n + dit)
+    kernel = tfm.butterfly_dit_pass if dit else tfm.butterfly_dif_pass
+    plain = tfm.butterfly_dit_pass_plain if dit else \
+        tfm.butterfly_dif_pass_plain
+    x = _planes(rand_limbs(gen, (b, w), False), cuda_device)
+    tws = to_t(np.ascontiguousarray(rand_limbs(
+        gen, (log2n, 1 << (log2n - 1)), False).transpose(0, 2, 1)),
+        cuda_device)
+    name = "butterfly_dit" if dit else "butterfly_dif"
+    before = tfm.LAUNCHES[name]
+    runs = 0
+    for t0 in range(log2n):
+        for s in range(1, min(log2n - t0, tfm.MAX_PASS) + 1):
+            got = kernel(x, tws, t0, s)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), plain(x.cpu(), tws.cpu(), t0, s))
+            runs += 1
+    assert tfm.LAUNCHES[name] == before + runs
+    with pytest.raises(ValueError):
+        kernel(x, tws, log2n - 1, 2)
 
 
 def test_planar_kernels_reject_bad_operands(cuda_device):
