@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
-source, in parallel), checks each kernel against its plain PyTorch version
-at the shapes of the main path and times it (KB per butterfly transform,
-as its planned passes, beside the one-stage-per-launch composition), checks that small proofs made
+source, in parallel) and reports each kernel's registers, spills and SASS
+counts, checks each kernel against its plain PyTorch version at the shapes
+of the main path and times it (KB per butterfly transform, as its planned
+passes, beside the one-stage-per-launch composition; K2 and KE mont_scalar
+also at their small calls, beside the launch floor of an empty kernel with
+the same grid), checks that small proofs made
 on the GPU in the planar and the AoS configuration, each with the butterfly
 and with the int8 encode engine, are byte-identical to the same proofs made
 on the CPU, then drives the configurations through the port's
@@ -83,7 +86,7 @@ SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + 32 * 5,
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 # mangled name fragment of each kernel's device function
 SASS_NAME = {
-    "mont_mul": "mont_mul_kernelILi0E", "mulmod": "mont_mul_kernelILi1E",
+    "mont_mul": "mont_mul_kernel", "mulmod": "mulmod_kernel",
     "sha256_absorb": "absorb_kernelILb0E",
     "sha256_absorb_planar": "absorb_kernelILb1E",
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
@@ -91,7 +94,7 @@ SASS_NAME = {
     "submod_planar": "eltwise_kernelILi1E",
     "mont_mul_planar": "eltwise_kernelILi2E",
     "mulmod_planar": "eltwise_kernelILi3E",
-    "mont_mul_scalar_planar": "eltwise_kernelILi4E",
+    "mont_mul_scalar_planar": "mont_scalar_kernel",
     "mulmod_fma_planar": "eltwise_kernelILi5E",
     "renorm_final": "renorm_kernelILi0E", "renorm_mid": "renorm_kernelILi1E",
     "renorm_pack": "renorm_kernelILi2E", "digitize": "digitize_kernel",
@@ -192,7 +195,7 @@ def launches_ms(launch, *buffers, iters: int = 50) -> tuple[float, float]:
     not enter the measurement."""
     import torch
     nbytes = sum(b.untyped_storage().nbytes() for b in buffers)
-    copies = -(-3 * L2_BYTES // nbytes)
+    copies = -(-3 * L2_BYTES // nbytes) if nbytes else 1
     sets = [buffers] + [[_copy_like(b) for b in buffers]
                         for _ in range(copies - 1)]
     times = []
@@ -241,6 +244,43 @@ def sass_counts(lib_path) -> dict:
         require(len(hits) == 1, f"one SASS function for {name}: {hits}")
         out[name] = tuple(hits[0])
     return out
+
+
+def ptxas_report(text: str) -> dict:
+    """Per kernel, (registers, spill store bytes, spill load bytes) from
+    the ``ptxas -v`` lines of the build log (empty for a cached build)."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?([A-Za-z_]\w*)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [0, 0, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur[0] = int(m.group(1))
+    return {name: tuple(v) for name, frag in SASS_NAME.items()
+            for f, v in funcs.items() if frag in f}
+
+
+def floor_ms(lib, stream, blocks: int, threads: int) -> float:
+    """The launch floor: device time of one launch of an empty kernel with
+    this grid, timed as the kernels are (``launches_ms``)."""
+    from ligero_prover_tpu_torch import kernels
+    return launches_ms(lambda: kernels.check(
+        lib.ligero_empty(blocks, threads, stream), "empty"))[0]
+
+
+def k2_grid(n: int) -> tuple[int, int]:
+    """K2's (blocks, threads) for n elements, as ``mulmod_threads`` in
+    csrc/fieldmul.cu chooses them."""
+    threads = 256
+    while threads > 32 and -(-n // threads) < SMS:
+        threads //= 2
+    return -(-n // threads), threads
 
 
 def bound(name: str, nbytes: int, threads: int, iters: int = 1):
@@ -292,14 +332,19 @@ def edge_limbs(device, reverse=False):
                             .copy()).to(device)
 
 
-def report(results, name, label, err, times, plain_ms, bnd):
+def report(results, name, label, err, times, plain_ms, bnd, floor=None):
+    """Log one kernel's check and times and keep them as its row of the
+    kernel table; `floor`: the launch floor at the same grid."""
     ms, hot_ms = times
+    extra = "" if floor is None else f" floor_ms={floor:.4f}"
     log(f"phase 3: {name} {label}: max_abs_err={err} kernel_ms={ms:.4f} "
-        f"(operands in L2: {hot_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"(operands in L2: {hot_ms:.4f}){extra} plain_ms={plain_ms:.4f} "
         f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
     require(err == 0, f"{name} {label} equals its plain version")
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
+    if floor is not None:
+        results[name]["floor_ms"] = floor
 
 
 def compare_cases(kernel, plain, cases) -> int:
@@ -353,26 +398,36 @@ def check_aos_kernels(device, gen, lib, stream, results):
            field_ms("mont_mul", x, tw),
            cuda_ms(lambda: fm.mont_mul_plain(x, tw), 3),
            bound("mont_mul", 64 * n1 + 32 * 16384, n1))
-    # K2 at the check-stage shape
-    x, y = limbs((16, 32768)), limbs((16, 32768))
-    err = max(compare("mulmod", (a, b)), compare("mulmod", (x, y)))
-    n2 = x.numel() // 8
-    report(results, "mulmod", "(16*32768,8), (65536,8) non-canonical", err,
-           field_ms("mulmod", x, y),
-           cuda_ms(lambda: fm.mulmod_plain(x, y), 3),
-           bound("mulmod", 96 * n2, n2))
-    # K2 at the shapes of its callers on the planar path: the vbn254fr
-    # arena's (k, 8) rows and the verifier's (B, 192, 8) sums
-    for label, shape in (("arena", (FULL_K,)), ("verifier", (16, 192))):
-        xs, ys = limbs(shape), limbs(shape)
-        err = compare("mulmod", (xs, ys))
-        size = xs.numel() // 8
-        times = field_ms("mulmod", xs, ys)
+    # K2 at the AoS path's check shape and at the shapes of its callers on
+    # the planar path, the vbn254fr arena's (k, 8) rows and the verifier's
+    # (B, 192, 8) sums: checked on canonical operands, on non-canonical
+    # ones with the edge values, and against one broadcast element
+    # (y_rows = 1); timed on the canonical pair beside the launch floor at
+    # K2's grid for that size
+    for label, shape in (("AoS check", (16, 32768)), ("arena", (FULL_K,)),
+                         ("verifier", (16, 192))):
+        x, y = limbs(shape), limbs(shape)
+        xw, yw = limbs(shape, False), limbs(shape, False)
+        xw.view(-1, 8)[:6] = edge_limbs(device)
+        yw.view(-1, 8)[:6] = edge_limbs(device, reverse=True)
+        err = max(compare("mulmod", args) for args in
+                  ((x, y), (xw, yw), (xw, limbs((), False)),
+                   (xw, edge_limbs(device)[5])))
+        size = x.numel() // 8
+        times = field_ms("mulmod", x, y)
+        floor = floor_ms(lib, stream, *k2_grid(size))
         bnd = bound("mulmod", 96 * size, size)
-        CARD[f"mulmod_{label}"] = {"ms": times[0], "bound_ms": bnd[0]}
-        log(f"phase 3: mulmod at the {label}'s {shape + (8,)}: max_abs_err="
-            f"{err} kernel_ms={times[0]:.4f} (operands in L2: "
-            f"{times[1]:.4f}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if label == "AoS check":
+            report(results, "mulmod", f"{shape + (8,)} x same, non-canonical "
+                   "and edge operands, one broadcast element", err, times,
+                   cuda_ms(lambda: fm.mulmod_plain(x, y), 3), bnd, floor)
+            continue
+        CARD[f"mulmod_{label}"] = {"ms": times[0], "floor_ms": floor,
+                                   "bound_ms": bnd[0]}
+        log(f"phase 3: mulmod at the {label}'s {shape + (8,)}, grid "
+            f"{k2_grid(size)}: max_abs_err={err} kernel_ms={times[0]:.4f} "
+            f"(operands in L2: {times[1]:.4f}) floor_ms={floor:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         require(err == 0, f"mulmod at the {label}'s shape equals its plain "
                 "version")
 
@@ -446,21 +501,50 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         err = compare_cases(kernel, plain,
                             [(x, y), (rows, s if scalar else full),
                              (xw, sw if scalar else yw)])
-        xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
-        require(xa.data_ptr() == x.data_ptr(),
-                f"{name} reads its first operand in place")
-        out = torch.empty((8, size), dtype=torch.int32, device=device)
+
+        def ke_ms(x, y):
+            """(cold, hot) ms of one launch on (x, y), the arguments it
+            hands ``ligero_planar_eltwise``, the bytes it must move and
+            the launch floor at its grid (KE: 256-thread blocks)."""
+            args = fm.eltwise_args(name, x, y)
+            xa, x_ls, ya, y_ls, y_div, size = args
+            require(xa.data_ptr() == x.data_ptr(),
+                    f"{name} reads its first operand in place")
+            out = torch.empty((8, size), dtype=torch.int32, device=device)
+            times = launches_ms(lambda xa, ya, out: kernels.check(
+                lib.ligero_planar_eltwise(
+                    xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div, None, 0,
+                    out.data_ptr(), size, mode, stream), name), xa, ya, out)
+            # x read, out written, each y element read once
+            return times, args, 64 * size + 4 * ya.numel(), \
+                floor_ms(lib, stream, -(-size // 256), 256)
+
+        times, (_, x_ls, _, y_ls, y_div, size), nbytes, floor = ke_ms(x, y)
         report(results, name, f"{tuple(x.shape)} x {tuple(y.shape)} "
                f"(limb strides {x_ls}, {y_ls}; y_div {y_div}), full "
-               f"(8,{bsz},{n}) and (8,65536) non-canonical", err,
-               launches_ms(lambda xa, ya, out: kernels.check(
-                   lib.ligero_planar_eltwise(
-                       xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div,
-                       None, 0, out.data_ptr(), size, mode, stream), name),
-                   xa, ya, out),
-               cuda_ms(lambda: plain(x, y), 3),
-               # x read, out written, each y element read once
-               bound(name, 64 * size + 4 * ya.numel(), size))
+               f"(8,{bsz},{n}) and (8,65536) non-canonical", err, times,
+               cuda_ms(lambda: plain(x, y), 3), bound(name, nbytes, size),
+               floor if scalar else None)
+        if scalar:
+            # the check's prescale of the 16 per-row scalars, also with
+            # the edge values p and 2^256 - 1 as the scalar
+            small = planes((bsz,), False)
+            small[:, :6] = edge_limbs(device).T
+            edges = edge_limbs(device)
+            err = compare_cases(kernel, plain, [(small, s), (small, sw),
+                                                (small, edges[4]),
+                                                (small, edges[5]),
+                                                (xw, edges[5])])
+            times, (*_, size), nbytes, floor = ke_ms(small, s)
+            bnd = bound(name, nbytes, size)
+            CARD["mont_scalar_small"] = {"ms": times[0], "floor_ms": floor,
+                                         "bound_ms": bnd[0]}
+            log(f"phase 3: {name} at the check's prescale (8, {bsz}): "
+                f"max_abs_err={err} kernel_ms={times[0]:.4f} (operands in "
+                f"L2: {times[1]:.4f}) floor_ms={floor:.4f} "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            require(err == 0, f"{name} at (8, {bsz}) equals its plain "
+                    "version")
 
     # KE mulmod_fma: acc + x*y on full (8, 16, n) operands; no caller on
     # any path, so this is its only launch
@@ -1050,12 +1134,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     info = kernels.build_info
-    ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(info.get("log", ""))
     CARD["sass"] = sass_counts(info["path"])
     log(f"phase 2: built {os.path.basename(info['path'])} in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {info['seconds']:.2f}s, "
-        f"cached={info['cached']}); ptxas: {' | '.join(ptxas)}; SASS "
+        f"cached={info['cached']}); ptxas (registers, spill store bytes, "
+        f"spill load bytes) per kernel: {ptxas}; SASS "
         f"(IMAD.WIDE, IMAD.HI, all) per kernel: {CARD['sass']}")
 
     measured = check_kernels(device)

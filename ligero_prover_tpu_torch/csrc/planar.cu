@@ -50,9 +50,15 @@
 // (fieldmul.py:252,256,269,278) and gives _k_mont_mul/_k_mulmod (:260,264)
 // their planar entry.  mulmod_fma adds the product to a third operand z,
 // a full plane read at element i.
-// The second operand y is either a full plane (y_div = 1), a value per
+// The second operand y is either a full plane (y_div = 1) or a value per
 // run of y_div consecutive elements (a per-row scalar over (8, B, n) rows
-// has y_div = n), or, in mode kScalar, one element read once per thread.
+// has y_div = n).  Mode kScalar (mont_scalar) is a kernel of its own: one
+// element s, read once per thread into registers, and field.cuh's
+// carry-chain product mont_mul_cc, about a third of mont_mul's
+// instructions: at the encode's (8, 16, k) call the product is then a
+// small part of its time, the launch and its loads and stores the rest
+// (PERF.md); its other calls (the check's prescales of 16 and T+P
+// elements) are bound by the launch.
 //
 // What bounds them on this card: a butterfly or a Montgomery product is
 // ~200 32-bit multiply-adds per 96 bytes moved, so KB and KE's product
@@ -289,26 +295,19 @@ LIGERO_HD void pass_step_at(const uint32_t* cur, uint32_t* nxt,
   }
 }
 
-// Element i of KE.  `s` holds the scalar's limbs in mode kScalar (read
-// once per thread by the caller); otherwise y is read at i / y_div.  z is
-// read in mode kFma only.
+// Element i of KE in modes add, sub, mont_mul, mulmod and mulmod_fma: y
+// is read at i / y_div, z in mode kFma only.
 template <int kMode>
 LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
-                          const uint32_t* z, uint32_t z_ls,
-                          const uint32_t s[8], uint32_t* out, uint32_t n,
-                          uint32_t i) {
+                          const uint32_t* z, uint32_t z_ls, uint32_t* out,
+                          uint32_t n, uint32_t i) {
   uint32_t a[8], c[8], r[8];
 #pragma unroll
   for (int l = 0; l < 8; ++l) a[l] = x[l * x_ls + i];
-  if (kMode == kScalar) {
+  const uint32_t yi = y_div == 1u ? i : i / y_div;
 #pragma unroll
-    for (int l = 0; l < 8; ++l) c[l] = s[l];
-  } else {
-    const uint32_t yi = y_div == 1u ? i : i / y_div;
-#pragma unroll
-    for (int l = 0; l < 8; ++l) c[l] = y[l * y_ls + yi];
-  }
+  for (int l = 0; l < 8; ++l) c[l] = y[l * y_ls + yi];
   if (kMode == kAdd)
     add_mod(a, c, r);
   else if (kMode == kSub)
@@ -323,6 +322,20 @@ LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
     add_mod(acc, t, r);
   } else
     mont_mul(a, c, r);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
+}
+
+// Element i of KE mont_scalar: x[i] * s * 2^-256 mod p by field.cuh's
+// carry-chain product, the scalar's limbs `s` in registers (read once per
+// thread by the caller).
+LIGERO_HD void mont_scalar_at(const uint32_t* x, uint32_t x_ls,
+                              const uint32_t s[8], uint32_t* out, uint32_t n,
+                              uint32_t i) {
+  uint32_t a[8], r[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) a[l] = x[l * x_ls + i];
+  mont_mul_cc(a, s, r);
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
 }
@@ -369,15 +382,24 @@ eltwise_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
                const uint32_t* __restrict__ y, uint32_t y_ls, uint32_t y_div,
                const uint32_t* __restrict__ z, uint32_t z_ls,
                uint32_t* __restrict__ out, uint32_t n) {
-  uint32_t s[8];
-  if (kMode == kScalar) {
-#pragma unroll
-    for (int l = 0; l < 8; ++l) s[l] = y[l * y_ls];
-  }
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, z, z_ls, s, out, n, i);
+    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, z, z_ls, out, n, i);
+}
+
+// KE mont_scalar: the scalar (limbs at stride s_ls) read once per thread.
+__global__ void __launch_bounds__(256)
+mont_scalar_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
+                   const uint32_t* __restrict__ sc, uint32_t s_ls,
+                   uint32_t* __restrict__ out, uint32_t n) {
+  uint32_t s[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) s[l] = sc[l * s_ls];
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    mont_scalar_at(x, x_ls, s, out, n, i);
 }
 
 inline unsigned grid_for(unsigned long long work) {
@@ -481,8 +503,8 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
           xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     default:
-      ligero_pl::eltwise_kernel<ligero_pl::kScalar><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+      ligero_pl::mont_scalar_kernel<<<grid, 256, 0, s>>>(xp, xl, yp, yl, op,
+                                                         nn);
       break;
   }
   return (int)cudaGetLastError();

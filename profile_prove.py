@@ -9,7 +9,8 @@ For each configuration of ``ops.ntt.USE_PLANAR`` and ``ops.ntt.USE_MXU`` on
 the vbn254fr guest of ``chip_smoke.make_wat`` at k=8192: one warm-up prove;
 one timed prove (wall and stage seconds, the port's launch counters); one
 prove under ``torch.profiler`` (device kernel time, kernel count, the top
-device ops); and, before any prove, one 16-row k->n encode as the
+device ops, the device ms and launches of each of the port's own
+kernels); and, before any prove, one 16-row k->n encode as the
 pipelines call it, timed by the host clock and by CUDA events, with its
 device kernels by name (the int8 engine's three ``torch._int_mm`` products
 show under their library names).  The device busy share is the profiled kernel time over the
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +51,18 @@ def _by_device_time(events, top: int) -> list:
     """The `top` device ops of a profile: (name, ms, count)."""
     return [(e.key[:60], round(_device_time_us(e) / 1e3, 3), e.count)
             for e in sorted(events, key=_device_time_us, reverse=True)[:top]]
+
+
+def port_kernels(events) -> dict:
+    """Device ms and launches of each of the port's own kernels in a
+    profile, by namespace, name and template arguments."""
+    out = {}
+    for e in events:
+        m = re.search(r"ligero_\w+::\w+(?:<[^>]*>)?", e.key)
+        if m:
+            ms, count = out.get(m.group(0), (0.0, 0))
+            out[m.group(0)] = (ms + _device_time_us(e) / 1e3, count + e.count)
+    return out
 
 
 def encode_times(planar: bool, mxu: bool, iters: int = 5) -> dict:
@@ -155,7 +169,8 @@ def profile_config(name: str, rounds: int) -> dict:
                    device_busy_share=kernel_us / 1e6 / wall,
                    device_kernels=n_kernels,
                    device_kernels_per_row=n_kernels / res.num_rows,
-                   top_device_ops=_by_device_time(dev, 12))
+                   top_device_ops=_by_device_time(dev, 12),
+                   port_kernels=port_kernels(dev))
     return out
 
 

@@ -59,6 +59,32 @@ def test_field_kernel_matches_plain_and_golden(cuda_device, name):
     assert got == [GOLDEN[name](a, b) for a, b in zip(xs, ys)]
 
 
+@pytest.mark.parametrize("n", [8192, 3072])
+@pytest.mark.parametrize("y_rows", ["n", 1])
+def test_mulmod_kernel_at_the_main_path_sizes(cuda_device, n, y_rows):
+    """K2 at the vbn254fr arena's 8,192 and the verifier's 3,072 elements,
+    the second operand full (y_rows = n) or one broadcast element, on
+    non-canonical operands with the edge values, against the plain
+    version and the golden model on the canonical ones."""
+    gen = np.random.default_rng(n + (y_rows == 1))
+    rows = 1 if y_rows == 1 else n
+    x, y = rand_limbs(gen, (n,), False), rand_limbs(gen, (rows,), False)
+    edges = ints_to_limbs(NONCANONICAL + EDGES)
+    x[:len(edges)] = edges
+    y[:len(edges)] = edges[::-1][:rows]
+    xt, yt = to_t(x, cuda_device), to_t(y, cuda_device)
+    before = tfm.LAUNCHES["mulmod"]
+    got = tfm.mulmod(xt, yt)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES["mulmod"] == before + 1
+    assert torch.equal(got.cpu(), tfm.mulmod_plain(xt.cpu(), yt.cpu()))
+    xs = limbs_to_ints(x)
+    ys = limbs_to_ints(np.broadcast_to(y, x.shape))
+    for g, a, b in zip(limbs_to_ints(to_np(got)), xs, ys):
+        if a < F.MODULUS and b < F.MODULUS:
+            assert g == GOLDEN["mulmod"](a, b)
+
+
 def test_field_kernel_rejects_bad_operands(cuda_device):
     x = torch.zeros((4, 8), dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError):
