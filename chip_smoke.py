@@ -9,7 +9,8 @@ counts, checks each kernel against its plain PyTorch version at the shapes
 of the main path and times it (KB per butterfly transform, as its planned
 passes, beside the one-stage-per-launch composition; K2 and KE mont_scalar
 also at their small calls, beside the launch floor of an empty kernel with
-the same grid), checks that small proofs made
+the same grid; KE mont_mul at the check's three calls and quad-terms beside
+the nine launches it replaced), checks that small proofs made
 on the GPU in the planar and the AoS configuration, each with the butterfly
 and with the int8 encode engine, are byte-identical to the same proofs made
 on the CPU, then drives the configurations through the port's
@@ -62,12 +63,14 @@ ISSUE_PER_CLK = 128
 # product of two 8-limb operands needs 64 + 36 + 64 = 164 32x32->64-bit
 # products (x*y, the low half of U_lo*J, m*p); mulmod is two of them, a
 # butterfly one; add and sub need none (their ~24 integer operations per
-# element take under 1/20 of their bytes' time and are left out).
+# element take under 1/20 of their bytes' time and are left out); a
+# quad-terms element of a triple is one mulmod, of a pair none.
 # The renormalisation needs 8 products for the fold of bits [504, 528)
 # and 36 + 64 for its REDC; renorm_mid adds one Montgomery product.
 PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
             "butterfly_dif": 164, "mont_mul_planar": 164,
-            "mulmod_planar": 328, "mont_mul_scalar_planar": 164,
+            "mulmod_planar": 328, "quad_terms_planar": 328,
+            "mont_mul_scalar_planar": 164,
             "mulmod_fma_planar": 328, "renorm_final": 108,
             "renorm_pack": 108, "renorm_mid": 272}
 # One SHA-256 compression, each operation one instruction (a rotate one
@@ -92,13 +95,22 @@ SASS_NAME = {
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
-    "mont_mul_planar": "eltwise_kernelILi2E",
-    "mulmod_planar": "eltwise_kernelILi3E",
+    # KE mont_mul: the per-row scalar form (the check's calls) and the
+    # full-plane form (the linear test); mulmod: the full-plane form; all
+    # in 16-byte units of 4 elements (SASS_ELEMENTS)
+    "mont_mul_planar": "run_product_kernelILb0ELb1ELb1EE",
+    "mont_mul_planar_full": "run_product_kernelILb0ELb0ELb1EE",
+    "mulmod_planar": "run_product_kernelILb1ELb0ELb1EE",
+    "quad_terms_planar": "quad_terms_kernelILb1EE",
     "mont_mul_scalar_planar": "mont_scalar_kernel",
     "mulmod_fma_planar": "eltwise_kernelILi5E",
     "renorm_final": "renorm_kernelILi0E", "renorm_mid": "renorm_kernelILi1E",
     "renorm_pack": "renorm_kernelILi2E", "digitize": "digitize_kernel",
 }
+# elements whose code one pass of the kernel's body holds (its SASS count
+# over this is per element); 1 where not listed
+SASS_ELEMENTS = {"mont_mul_planar": 4, "mont_mul_planar_full": 4,
+                 "mulmod_planar": 4, "quad_terms_planar": 4}
 
 
 def make_wat(rounds: int) -> str:
@@ -214,13 +226,14 @@ def launches_ms(launch, *buffers, iters: int = 50) -> tuple[float, float]:
     return times[0], times[1]
 
 
-def sass_counts(lib_path) -> dict:
-    """Per kernel, (IMAD.WIDE, IMAD.HI, all) SASS instructions of its
-    device function (``cuobjdump -sass``; NOPs not counted): how many
-    32x32->64-bit products the compiled code spends against ``PRODUCTS``.
-    The bodies are straight-line code, so this is one element's count,
-    plus a prologue of a few instructions.  A diagnostic only: the bounds
-    do not read it."""
+def sass_counts(lib_path, names: dict = SASS_NAME) -> dict:
+    """Per kernel of `names` (name -> a fragment of the mangled name of
+    its device function), (IMAD.WIDE, IMAD.HI, all) SASS instructions
+    of its device function (``cuobjdump -sass``; NOPs not counted): how
+    many 32x32->64-bit products the compiled code spends against
+    ``PRODUCTS``.  The bodies are straight-line code, so this is the count
+    of ``SASS_ELEMENTS`` elements (one unless listed), plus a prologue of
+    a few instructions.  A diagnostic only: the bounds do not read it."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
         / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib_path)],
@@ -239,16 +252,17 @@ def sass_counts(lib_path) -> dict:
         cur[0] += m.group(1).startswith("IMAD.WIDE")
         cur[1] += m.group(1).startswith("IMAD.HI")
     out = {}
-    for name, frag in SASS_NAME.items():
+    for name, frag in names.items():
         hits = [v for f, v in funcs.items() if frag in f]
         require(len(hits) == 1, f"one SASS function for {name}: {hits}")
         out[name] = tuple(hits[0])
     return out
 
 
-def ptxas_report(text: str) -> dict:
-    """Per kernel, (registers, spill store bytes, spill load bytes) from
-    the ``ptxas -v`` lines of the build log (empty for a cached build)."""
+def ptxas_report(text: str, names: dict = SASS_NAME) -> dict:
+    """Per kernel of `names` (as for ``sass_counts``), (registers, spill
+    store bytes, spill load bytes) from the ``ptxas -v`` lines of the
+    build log (empty for a cached build)."""
     funcs, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:entry function|Function properties for) "
@@ -262,7 +276,7 @@ def ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur[0] = int(m.group(1))
-    return {name: tuple(v) for name, frag in SASS_NAME.items()
+    return {name: tuple(v) for name, frag in names.items()
             for f, v in funcs.items() if frag in f}
 
 
@@ -281,6 +295,17 @@ def k2_grid(n: int) -> tuple[int, int]:
     while threads > 32 and -(-n // threads) < SMS:
         threads //= 2
     return -(-n // threads), threads
+
+
+RUN_THREADS, RUN_UNITS = 128, 2    # csrc/planar.cu kRunThreads, kRunUnits
+
+
+def run_grid(n: int, length: int, vec: bool) -> tuple[int, int]:
+    """(blocks, threads) of KE mont_mul, mulmod and quad-terms over n
+    output elements in runs of `length` (a row), 4-element units if
+    `vec`, as ``run_geom``/``run_ctas`` in csrc/planar.cu compute them."""
+    per_cta = RUN_THREADS * RUN_UNITS * (4 if vec else 1)
+    return -(-n // length) * -(-length // per_cta), RUN_THREADS
 
 
 def bound(name: str, nbytes: int, threads: int, iters: int = 1):
@@ -460,8 +485,9 @@ def check_aos_kernels(device, gen, lib, stream, results):
 
 
 def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
-    """KE in every mode and K3 on planar rows, at the calls of the planar
-    path: n = 4k, 16 rows per flush."""
+    """KE add, sub, mont_scalar and mulmod_fma (mont_mul, mulmod and
+    quad-terms: ``check_ke_runs``) and K3 on planar rows, at the calls of
+    the planar path: n = 4k, 16 rows per flush."""
     import torch
     from ligero_prover_tpu_torch import kernels
     from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha
@@ -472,11 +498,11 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         return random_limbs(gen, shape, device, canonical) \
             .movedim(-1, 0).contiguous()
 
-    # KE, timed at the call the main path makes in each mode:
+    # KE add, sub and mont_scalar (mont_mul and mulmod: check_ke_runs),
+    # timed at the call the main path makes in each mode:
     #   addmod   the tree sum's first fold: the two (8, 8, n) halves of
     #            (8, 16, n) products, read in place at limb stride 16n
-    #   submod, mulmod   full (8, 16, n) operands (gathered rows)
-    #   mont_mul (8, 16, n) rows times a (8, 16, 1) per-row scalar
+    #   submod   full (8, 16, n) operands
     #   mont_scalar      (8, 16, k) rows times one scalar (the 1/k scaling)
     # and checked there, at full (8, 16, n) second operands, and on one
     # non-canonical set with the edge values
@@ -485,8 +511,6 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
     main_call = {
         "addmod_planar": (rows[:, :bsz // 2], rows[:, bsz // 2:]),
         "submod_planar": (rows, full),
-        "mont_mul_planar": (rows, planes((bsz, 1))),
-        "mulmod_planar": (rows, full),
         "mont_mul_scalar_planar": (planes((bsz, k)), s),
     }
     xw, yw = planes((65536,), False), planes((65536,), False)
@@ -494,6 +518,8 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         edge_limbs(device, reverse=True).T
     sw = planes((), False)
     for name, mode in fm.PLANAR_MODE.items():
+        if name not in main_call:
+            continue
         kernel = getattr(fm, name)
         plain = getattr(fm, name + "_plain")
         scalar = name == "mont_mul_scalar_planar"
@@ -591,6 +617,160 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
                state, pending, False, flushes[0][0], 16), 3),
            bound("sha256_absorb_planar", 32 * cols * (bsz + 3), cols,
                  bsz // 2))
+
+
+def _vec16(*ptr_strides) -> bool:
+    """Whether each (data pointer, limb stride) pair allows 16-byte units
+    (the vec test of csrc/planar.cu; the caller adds the run length)."""
+    return all(ptr % 16 == 0 and ls % 4 == 0 for ptr, ls in ptr_strides)
+
+
+def _run_log(name, label, err, times, floor, bnd, extra=""):
+    regs = CARD.get("ptxas", {}).get(name, ("not built here",))[0]
+    sass = CARD["sass"][name][2] / SASS_ELEMENTS.get(name, 1)
+    log(f"phase 3: {name} {label}: max_abs_err={err} kernel_ms={times[0]:.4f}"
+        f" (operands in L2: {times[1]:.4f}) floor_ms={floor:.4f} "
+        f"bound_ms={bnd[0]:.4f} ({bnd[1]}, {100 * bnd[0] / times[0]:.0f}%) "
+        f"registers={regs} sass_per_element={sass:.0f}{extra}")
+
+
+def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
+    """KE mont_mul and mulmod (carry-chain products, one row per CTA run,
+    16-byte units) and quad-terms at the calls of the planar check step
+    (n = 4k, 16 rows per flush, T = P = 16 after padding to the batch):
+    checked against the plain versions on canonical operands, on
+    non-canonical ones with the edge values, and with one scalar for all;
+    timed L2-cold and L2-hot beside the launch floor at their grid and the
+    bound."""
+    import numpy as np
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+
+    n, bsz = 4 * k, 16
+
+    def planes(shape, canonical=True):
+        return random_limbs(gen, shape, device, canonical) \
+            .movedim(-1, 0).contiguous()
+
+    def ke_ms(name, x, y):
+        """(cold, hot) ms of one ligero_planar_eltwise launch on (x, y),
+        the bytes it must move, the launch floor at its grid and the
+        elements it computes."""
+        xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
+        mode = fm.PLANAR_MODE[name]
+        out = torch.empty((8, size), dtype=torch.int32, device=device)
+        times = launches_ms(lambda xa, ya, out: kernels.check(
+            lib.ligero_planar_eltwise(
+                xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div, None, 0,
+                out.data_ptr(), size, mode, stream), name), xa, ya, out)
+        row = y_div > 1
+        vec = size % 4 == 0 and _vec16((xa.data_ptr(), x_ls),
+                                       (out.data_ptr(), 4)) and \
+            (y_div % 4 == 0 if row else _vec16((ya.data_ptr(), y_ls)))
+        grid = run_grid(size, y_div if row else size, vec)
+        # x read, out written, each y element read once
+        return times, 64 * size + 4 * ya.numel(), \
+            floor_ms(lib, stream, *grid), size
+
+    # non-canonical operands with the edge values: rows, per-row scalars
+    # (the edges as six of the scalars) and full planes
+    xw, yw = planes((bsz, n), False), planes((bsz, n), False)
+    xw[:, 0, :6] = edge_limbs(device).T
+    yw[:, 0, :6] = edge_limbs(device, reverse=True).T
+    sw = planes((bsz, 1), False)
+    sw[:, :6, 0] = edge_limbs(device).T
+    code = (planes((bsz, n)), planes((bsz, 1)))
+    quad = (planes((2 * bsz, n)), planes((2 * bsz, 1)))
+    full = (planes((bsz, n)), planes((bsz, n)))
+    wild = [(xw, sw), (xw, yw), (xw, sw[:, 5:6])]
+    calls = [("code test (8,16,n) x (8,16,1)", code),
+             ("quad test (8,32,n) x (8,32,1)", quad),
+             ("linear test, full plane (8,16,n) x (8,16,n)", full)]
+    err = compare_cases(fm.mont_mul_planar, fm.mont_mul_planar_plain,
+                        [c for _, c in calls] + wild)
+    for i, (label, (x, y)) in enumerate(calls):
+        times, nbytes, floor, size = ke_ms("mont_mul_planar", x, y)
+        bnd = bound("mont_mul_planar", nbytes, size)
+        sass_name = "mont_mul_planar_full" if y.shape == x.shape \
+            else "mont_mul_planar"
+        _run_log(sass_name, label, err, times, floor, bnd)
+        require(err == 0, f"mont_mul_planar {label} equals its plain version")
+        CARD.setdefault("ke_mont_mul", {})[label] = {
+            "ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+        if i == 0:
+            report(results, "mont_mul_planar", label + "; all three calls "
+                   "and (8,16,n) non-canonical", err, times,
+                   cuda_ms(lambda: fm.mont_mul_planar_plain(x, y), 3), bnd,
+                   floor)
+
+    # mode 3, no caller on the main path since quad-terms: full planes
+    x, y = full
+    err = compare_cases(fm.mulmod_planar, fm.mulmod_planar_plain,
+                        [full, code] + wild)
+    times, nbytes, floor, size = ke_ms("mulmod_planar", x, y)
+    bnd = bound("mulmod_planar", nbytes, size)
+    _run_log("mulmod_planar", "(8,16,n) x same", err, times, floor, bnd)
+    report(results, "mulmod_planar", "(8,16,n) x same, per-row scalars, "
+           "non-canonical", err, times,
+           cuda_ms(lambda: fm.mulmod_planar_plain(x, y), 3), bnd, floor)
+
+    # quad-terms at the check's call: e (8, 16, n), 16 triples and 16
+    # pairs of random row indices (repeats among them), then the same
+    # indices, x = y = z, and zero-padded entries on non-canonical rows
+    e = planes((bsz, n))
+    ew = xw.clone()
+    ew[:, 1, :6] = edge_limbs(device, reverse=True).T
+    tri = gen.integers(0, bsz, (bsz, 3)).astype(np.int32)
+    pair = gen.integers(0, bsz, (bsz, 2)).astype(np.int32)
+    same = np.repeat(np.arange(bsz, dtype=np.int32)[:, None], 3, 1)
+    padded = (np.zeros((bsz, 3), np.int32), np.zeros((bsz, 2), np.int32))
+    padded[0][:2], padded[1][:1] = tri[:2], pair[:1]
+    err = compare_cases(fm.quad_terms_planar, fm.quad_terms_planar_plain,
+                        [(e, tri, pair), (ew, tri, pair),
+                         (ew, same, same[:, :2]), (ew, *padded)])
+    idx = torch.from_numpy(np.concatenate([tri.ravel(), pair.ravel()])) \
+        .to(device)
+    t_, p_ = len(tri), len(pair)
+    out = torch.empty((8, t_ + p_, n), dtype=torch.int32, device=device)
+    times = launches_ms(lambda e, idx, out: kernels.check(
+        lib.ligero_planar_quad_terms(
+            e.data_ptr(), bsz * n, bsz, n, idx.data_ptr(), t_,
+            idx.data_ptr() + 12 * t_, p_, out.data_ptr(), stream),
+        fm.QUAD), e, idx, out)
+    floor = floor_ms(lib, stream, *run_grid((t_ + p_) * n, n, True))
+    # each distinct row of e read once, the indices once, out written
+    distinct = len(set(tri.ravel()) | set(pair.ravel()))
+    bnd = bound(fm.QUAD, 32 * n * (distinct + t_ + p_) + 4 * idx.numel(),
+                t_ * n)
+    # the sequence it replaces: five index_selects, mulmod, two submods
+    # and a cat (9 launches)
+    tri_d, pair_d = (torch.from_numpy(a.astype(np.int64)).to(device)
+                     for a in (tri, pair))
+
+    def sequence(e, tri_d, pair_d):
+        ex, ey, ez = (e.index_select(1, tri_d[:, i]) for i in range(3))
+        px, py = (e.index_select(1, pair_d[:, i]) for i in range(2))
+        t = fm.submod_planar(fm.mulmod_planar(ex, ey), ez)
+        return torch.cat([t, fm.submod_planar(px, py)], dim=1)
+
+    want = sequence(e, tri_d, pair_d)
+    got = fm.quad_terms_planar(e, tri, pair)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, want))
+    seq = launches_ms(sequence, e, tri_d, pair_d, iters=20)
+    CARD["quad_terms"] = {"ms": times[0], "hot_ms": times[1],
+                          "floor_ms": floor, "bound_ms": bnd[0],
+                          "sequence_ms": seq[0], "sequence_hot_ms": seq[1]}
+    _run_log(fm.QUAD, f"e (8,{bsz},{n}), T={t_} P={p_} ({distinct} "
+             "distinct rows)", err, times, floor, bnd,
+             f"; the 9-launch sequence it replaces: {seq[0]:.4f} (operands "
+             f"in L2: {seq[1]:.4f}) ms, equal: {torch.equal(got, want)}")
+    report(results, fm.QUAD, f"e (8,{bsz},{n}) T={t_} P={p_}, repeated, "
+           "equal and padded indices, non-canonical rows", err, times,
+           cuda_ms(lambda: fm.quad_terms_planar_plain(e, tri, pair), 3),
+           bnd, floor)
 
 
 def check_butterfly_passes(device, gen, lib, stream, results, k=FULL_K):
@@ -925,6 +1105,7 @@ def check_kernels(device) -> dict:
     check_aos_kernels(device, gen, lib, stream, results)
     check_butterfly_passes(device, gen, lib, stream, results)
     check_planar_kernels(device, gen, lib, stream, results)
+    check_ke_runs(device, gen, lib, stream, results)
     check_mxu_kernels(device, gen, lib, stream, results)
     return results
 
@@ -1002,7 +1183,7 @@ def tamper(proof: bytes) -> bytes:
 
 
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
-                  "submod_planar", "mont_mul_planar", "mulmod_planar",
+                  "mont_mul_planar", "quad_terms_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar")
 AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
 MXU_KERNELS = ("digitize", "renorm_mid", "renorm_final")
@@ -1136,6 +1317,7 @@ def main() -> int:
     info = kernels.build_info
     ptxas = ptxas_report(info.get("log", ""))
     CARD["sass"] = sass_counts(info["path"])
+    CARD["ptxas"] = ptxas
     log(f"phase 2: built {os.path.basename(info['path'])} in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {info['seconds']:.2f}s, "
         f"cached={info['cached']}); ptxas (registers, spill store bytes, "
@@ -1159,9 +1341,14 @@ def main() -> int:
         "butterfly_dit": ("planar.cu", "ops/pallas/fieldmul.py:238"),
         "butterfly_dif": ("planar.cu", "ops/pallas/fieldmul.py:245"),
         "addmod_planar": ("planar.cu", "ops/pallas/fieldmul.py:252"),
+        # no caller on the main path since quad-terms: phase 3 only
         "submod_planar": ("planar.cu", "ops/pallas/fieldmul.py:256"),
         "mont_mul_planar": ("planar.cu", "ops/pallas/fieldmul.py:260"),
+        # no caller on the main path since quad-terms: phase 3 only
         "mulmod_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
+        # _k_mulmod's planar entry around the check's call, with the
+        # jnp.take gather and the submods of zkp/executor.py:233-250
+        "quad_terms_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
         "mont_mul_scalar_planar": ("planar.cu",
                                    "ops/pallas/fieldmul.py:269"),
         # no caller on any path of either package: launched in phase 3 only

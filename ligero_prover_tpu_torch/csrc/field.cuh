@@ -23,7 +23,8 @@
 //
 // mont_mul_cc / mulmod_cc (at the end of the file) compute the same
 // results as mont_mul / mulmod with PTX carry chains instead of 64-bit
-// C++ accumulation; K2 and KE mont_scalar use them.
+// C++ accumulation; K2, KE mont_scalar, KE mont_mul and mulmod and
+// quad-terms use them.
 
 #pragma once
 

@@ -59,6 +59,19 @@
 // small part of its time, the launch and its loads and stores the rest
 // (PERF.md); its other calls (the check's prescales of 16 and T+P
 // elements) are bound by the launch.
+// Modes kMont and kMulmod (run_product_kernel) and quad-terms
+// (quad_terms_kernel, _k_mulmod's planar entry redesigned around the
+// check's one call, which took the terms x*y - z and x - y from rows
+// gathered by index: executor.py:233-250) share one geometry: each CTA
+// covers part of one row (a run), so a per-row scalar is read once per
+// thread into registers and quad-terms picks its form and its three row
+// indices once per CTA; a thread moves 4 consecutive elements of each
+// limb plane as one 16-byte access where the plane and run starts allow,
+// and multiplies with the carry-chain mont_mul_cc/mulmod_cc.  quad-terms
+// reads the rows of the encoded batch in place (it fits the 50 MB L2)
+// and writes the (8, T+P, n) terms that the quadratic product reads: one
+// launch where the check made five row gathers, a mulmod, two submods and
+// a concatenation.
 //
 // What bounds them on this card: a butterfly or a Montgomery product is
 // ~200 32-bit multiply-adds per 96 bytes moved, so KB and KE's product
@@ -295,8 +308,8 @@ LIGERO_HD void pass_step_at(const uint32_t* cur, uint32_t* nxt,
   }
 }
 
-// Element i of KE in modes add, sub, mont_mul, mulmod and mulmod_fma: y
-// is read at i / y_div, z in mode kFma only.
+// Element i of KE in modes add, sub and mulmod_fma: y is read at
+// i / y_div, z in mode kFma only.
 template <int kMode>
 LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
@@ -312,16 +325,13 @@ LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
     add_mod(a, c, r);
   else if (kMode == kSub)
     sub_mod(a, c, r);
-  else if (kMode == kMulmod)
-    mulmod(a, c, r);
-  else if (kMode == kFma) {
+  else {
     uint32_t t[8], acc[8];
     mulmod(a, c, t);
 #pragma unroll
     for (int l = 0; l < 8; ++l) acc[l] = z[l * z_ls + i];
     add_mod(acc, t, r);
-  } else
-    mont_mul(a, c, r);
+  }
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
 }
@@ -338,6 +348,156 @@ LIGERO_HD void mont_scalar_at(const uint32_t* x, uint32_t x_ls,
   mont_mul_cc(a, s, r);
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
+}
+
+// ---- KE mont_mul, mulmod and quad-terms: runs of one row per CTA ----------
+
+// Threads per CTA and units per thread of these kernels, and the least
+// CTAs per SM their registers are sized for; experiment_ke_runs.py
+// builds other values with -D to sweep them.  128 threads of two units
+// came out 2-11% faster than 256 threads of one at the check's calls.
+// With the operands in L2 these kernels run at about a third of the SM's
+// instruction rate, and a design staged through shared memory (one
+// element per thread, 36-48 registers; in that script) came within 10%
+// either way: most likely the rate of the carry chains' wide
+// multiply-adds holds them (PERF.md).
+#ifndef LIGERO_RUN_THREADS
+#define LIGERO_RUN_THREADS 128
+#endif
+#ifndef LIGERO_RUN_UNITS
+#define LIGERO_RUN_UNITS 2
+#endif
+#ifndef LIGERO_RUN_MIN_BLOCKS
+#define LIGERO_RUN_MIN_BLOCKS 1
+#endif
+enum { kRunThreads = LIGERO_RUN_THREADS, kRunUnits = LIGERO_RUN_UNITS };
+
+// A launch over (8, n) output planes: runs of `len` consecutive elements
+// (a row; the last run may be shorter), each split over `chunks` CTAs of
+// kRunThreads threads, so that no CTA, and no warp, spans two rows.  A
+// thread moves units of 4 consecutive elements of each limb plane, one
+// 16-byte access per plane (vec), or of 1; CTA c of a run takes the
+// units c*kRunThreads + t, then every (chunks*kRunThreads)-th.
+struct RunGeom {
+  uint32_t n, len, chunks, vec;
+};
+
+LIGERO_HHD RunGeom run_geom(uint32_t n, uint32_t len, uint32_t vec) {
+  const uint32_t per_cta = (uint32_t)kRunThreads * (uint32_t)kRunUnits *
+                           (vec ? 4u : 1u);
+  const RunGeom g = {n, len, (len + per_cta - 1u) / per_cta, vec};
+  return g;
+}
+
+// CTAs of a launch: runs times chunks.
+LIGERO_HHD uint32_t run_ctas(const RunGeom& g) {
+  return (g.n + g.len - 1u) / g.len * g.chunks;
+}
+
+// V elements (4 or 1) of the 8 limb planes at element offset i.
+template <int V>
+LIGERO_HD void load_planes(const uint32_t* p, uint32_t ls, uint32_t i,
+                           uint32_t v[V][8]) {
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    if (V == 4) {
+      uint32_t w[4];
+      load4(p + l * ls + i, w);
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j][l] = w[j];
+    } else {
+      v[0][l] = p[l * ls + i];
+    }
+  }
+}
+
+template <int V>
+LIGERO_HD void store_planes(uint32_t* p, uint32_t ls, uint32_t i,
+                            uint32_t v[V][8]) {
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    if (V == 4) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < V; ++j) w[j] = v[j][l];
+      store4(p + l * ls + i, w);
+    } else {
+      p[l * ls + i] = v[0][l];
+    }
+  }
+}
+
+// Thread t of CTA `cta` of KE mont_mul (x*y*2^-256 mod p) or, kIsMulmod,
+// KE mulmod (x*y mod p), by field.cuh's carry-chain products.  kRow: y
+// holds one element per run (a per-row scalar, runs of y_div elements),
+// read once into registers; else y is a full plane, read as x is.
+template <bool kIsMulmod, bool kRow, int V>
+LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
+                              const uint32_t* y, uint32_t y_ls,
+                              uint32_t* out, const RunGeom& g, uint32_t cta,
+                              uint32_t t) {
+  const uint32_t run = cta / g.chunks, c = cta - run * g.chunks;
+  const uint32_t start = run * g.len;
+  const uint32_t end = g.n - start < g.len ? g.n : start + g.len;
+  uint32_t s[8];
+  if (kRow) {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) s[l] = y[l * y_ls + run];
+  }
+  const uint32_t step = (uint32_t)V * g.chunks * (uint32_t)kRunThreads;
+  for (uint32_t i = start + (uint32_t)V * (c * kRunThreads + t); i < end;
+       i += step) {
+    uint32_t a[V][8], b[V][8], r[V][8];
+    load_planes<V>(x, x_ls, i, a);
+    if (!kRow) load_planes<V>(y, y_ls, i, b);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (kIsMulmod)
+        mulmod_cc(a[j], kRow ? s : b[j], r[j]);
+      else
+        mont_mul_cc(a[j], kRow ? s : b[j], r[j]);
+    }
+    store_planes<V>(out, g.n, i, r);
+  }
+}
+
+// Thread t of CTA `cta` of quad-terms.  Run r is row r of the (8, T+P,
+// len) output: for r < T, sub_mod(mulmod_cc(e[x], e[y]), e[z]) with
+// (x, y, z) = tri[3r..3r+2]; for r >= T, sub_mod(e[x], e[y]) with
+// (x, y) = pair[2(r-T)..2(r-T)+1].  Row b of e starts at element b*len
+// of its planes (limb stride e_ls); the indices are checked by the
+// caller.  The branch is taken per CTA.
+template <int V>
+LIGERO_HD void quad_terms_at(const uint32_t* e, uint32_t e_ls,
+                             const int32_t* tri, uint32_t T,
+                             const int32_t* pair, uint32_t* out,
+                             const RunGeom& g, uint32_t cta, uint32_t t) {
+  const uint32_t row = cta / g.chunks, c = cta - row * g.chunks;
+  const bool triple = row < T;
+  const int32_t* ix = triple ? tri + 3u * row : pair + 2u * (row - T);
+  const uint32_t* ex = e + (uint32_t)ix[0] * g.len;
+  const uint32_t* ey = e + (uint32_t)ix[1] * g.len;
+  const uint32_t* ez = triple ? e + (uint32_t)ix[2] * g.len : ex;
+  uint32_t* o = out + row * g.len;
+  const uint32_t step = (uint32_t)V * g.chunks * (uint32_t)kRunThreads;
+  for (uint32_t i = (uint32_t)V * (c * kRunThreads + t); i < g.len;
+       i += step) {
+    uint32_t a[V][8], b[V][8], r[V][8];
+    load_planes<V>(ex, e_ls, i, a);
+    load_planes<V>(ey, e_ls, i, b);
+    if (triple) {
+      uint32_t m[V][8];
+#pragma unroll
+      for (int j = 0; j < V; ++j) mulmod_cc(a[j], b[j], m[j]);
+      load_planes<V>(ez, e_ls, i, a);
+#pragma unroll
+      for (int j = 0; j < V; ++j) sub_mod(m[j], a[j], r[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) sub_mod(a[j], b[j], r[j]);
+    }
+    store_planes<V>(o, g.n, i, r);
+  }
 }
 
 }  // namespace ligero_pl
@@ -400,6 +560,57 @@ mont_scalar_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
     mont_scalar_at(x, x_ls, s, out, n, i);
+}
+
+template <bool kIsMulmod, bool kRow, bool kVec>
+__global__ void __launch_bounds__(kRunThreads, LIGERO_RUN_MIN_BLOCKS)
+run_product_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
+                   const uint32_t* __restrict__ y, uint32_t y_ls,
+                   uint32_t* __restrict__ out, RunGeom g) {
+  run_product_at<kIsMulmod, kRow, kVec ? 4 : 1>(x, x_ls, y, y_ls, out, g,
+                                              blockIdx.x, threadIdx.x);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kRunThreads, LIGERO_RUN_MIN_BLOCKS)
+quad_terms_kernel(const uint32_t* __restrict__ e, uint32_t e_ls,
+                  const int32_t* __restrict__ tri, uint32_t T,
+                  const int32_t* __restrict__ pair,
+                  uint32_t* __restrict__ out, RunGeom g) {
+  quad_terms_at<kVec ? 4 : 1>(e, e_ls, tri, T, pair, out, g, blockIdx.x,
+                              threadIdx.x);
+}
+
+inline bool aligned16(const void* p) {
+  return (unsigned long long)p % 16 == 0;
+}
+
+// KE mont_mul (mulmod false) or mulmod over n elements: y one element per
+// run of y_div > 1 elements (read once per thread), or a full plane.
+// 16-byte accesses where every plane start and run start allows them.
+template <bool kIsMulmod>
+void launch_product(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                    uint32_t y_ls, uint32_t y_div, uint32_t* out, uint32_t n,
+                    cudaStream_t s) {
+  const bool row = y_div > 1u;
+  const bool vec = n % 4u == 0 && x_ls % 4u == 0 && aligned16(x) &&
+                   aligned16(out) &&
+                   (row ? y_div % 4u == 0
+                        : y_ls % 4u == 0 && aligned16(y));
+  const RunGeom g = run_geom(n, row ? y_div : n, vec);
+  const unsigned grid = run_ctas(g);
+  if (row && vec)
+    run_product_kernel<kIsMulmod, true, true>
+        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+  else if (row)
+    run_product_kernel<kIsMulmod, true, false>
+        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+  else if (vec)
+    run_product_kernel<kIsMulmod, false, true>
+        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+  else
+    run_product_kernel<kIsMulmod, false, false>
+        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
 }
 
 inline unsigned grid_for(unsigned long long work) {
@@ -491,12 +702,10 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
           xp, xl, yp, yl, yd, zp, zl, op, nn);
       break;
     case ligero_pl::kMont:
-      ligero_pl::eltwise_kernel<ligero_pl::kMont><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+      ligero_pl::launch_product<false>(xp, xl, yp, yl, yd, op, nn, s);
       break;
     case ligero_pl::kMulmod:
-      ligero_pl::eltwise_kernel<ligero_pl::kMulmod><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+      ligero_pl::launch_product<true>(xp, xl, yp, yl, yd, op, nn, s);
       break;
     case ligero_pl::kFma:
       ligero_pl::eltwise_kernel<ligero_pl::kFma><<<grid, 256, 0, s>>>(
@@ -507,6 +716,47 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
                                                          nn);
       break;
   }
+  return (int)cudaGetLastError();
+}
+
+// Quad-terms (the quadratic test's terms, KE mulmod redesigned around
+// the check's call): e (8, B, n) limb planes at limb stride e_ls >= B*n;
+// tri (T, 3) and pair (P, 2) int32 row indices of e, each in [0, B)
+// (checked by the caller; tri may be null when T = 0, pair when P = 0);
+// out (8, T+P, n) contiguous, not aliasing e:
+//   out[:, t]     = sub_mod(mulmod(e[:, x_t], e[:, y_t]), e[:, z_t]),
+//   out[:, T + p] = sub_mod(e[:, x_p], e[:, y_p]).
+// Every plane offset must stay below 2^32.  Returns cudaGetLastError().
+extern "C" int ligero_planar_quad_terms(const void* e, long long e_ls,
+                                        long long B, long long n,
+                                        const void* tri, long long T,
+                                        const void* pair, long long P,
+                                        void* out, void* stream) {
+  if (B < 0 || n < 0 || T < 0 || P < 0 || e_ls < B * n ||
+      7 * e_ls + B * n >= (1ll << 32) || 8 * (T + P) * n >= (1ll << 32) ||
+      (T + P > 0 && B == 0) || (T > 0 && tri == nullptr) ||
+      (P > 0 && pair == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((T + P) * n == 0) return 0;
+  const uint32_t nn = (uint32_t)n, el = (uint32_t)e_ls;
+  const bool vec = nn % 4u == 0 && el % 4u == 0 &&
+                   ligero_pl::aligned16(e) && ligero_pl::aligned16(out);
+  const ligero_pl::RunGeom g =
+      ligero_pl::run_geom((uint32_t)(T + P) * nn, nn, vec);
+  const unsigned grid = ligero_pl::run_ctas(g);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* ep = (const uint32_t*)e;
+  const int32_t* tp = (const int32_t*)tri;
+  const int32_t* pp = (const int32_t*)pair;
+  uint32_t* op = (uint32_t*)out;
+  if (vec)
+    ligero_pl::quad_terms_kernel<true>
+        <<<grid, ligero_pl::kRunThreads, 0, s>>>(ep, el, tp, (uint32_t)T, pp,
+                                                 op, g);
+  else
+    ligero_pl::quad_terms_kernel<false>
+        <<<grid, ligero_pl::kRunThreads, 0, s>>>(ep, el, tp, (uint32_t)T, pp,
+                                                 op, g);
   return (int)cudaGetLastError();
 }
 

@@ -47,6 +47,10 @@ SIGNATURES = {
     # 5 mulmod_fma: z + x*y; z is read in mode 5 only), stream
     "ligero_planar_eltwise": (_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64,
                               _I32, _P),
+    # e, e_limb_stride, B, n, tri (T, 3) int32, T, pair (P, 2) int32, P,
+    # out (8, T+P, n), stream: the quadratic test's terms
+    "ligero_planar_quad_terms": (_P, _I64, _I64, _I64, _P, _I64, _P, _I64,
+                                 _P, _P),
     # slots (64, X), tw, tw_limb_stride, tw_bc, tw_c (element i reads
     # tw[:, (i // tw_bc) * tw_c + i % tw_c]; mode 1 only), out (8, X), X,
     # mode (0 final, 1 mid, 2 pack), stream

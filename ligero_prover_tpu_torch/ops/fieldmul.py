@@ -3,15 +3,20 @@
 of s constant-geometry butterfly stages, ``butterfly_dit_pass``/
 ``butterfly_dif_pass``; ``butterfly_dit``/``butterfly_dif`` are its
 one-stage case) and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
-``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``).
+``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``, and
+``quad_terms_planar``: the quadratic test's terms, read from the encoded
+batch by row index).
 
 Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
 (``_k_mont_mul``/``_k_mulmod`` :260,264 through ``mont_mul_aos`` /
 ``mulmod_aos``; ``_k_butterfly_dit``/``_dif`` :238,245; ``_k_addmod``,
 ``_k_submod``, ``_k_mont_scalar``, ``_k_mulmod_fma`` :252,256,269,278 and
-the planar entries of :351-383).  The CUDA sources are ``csrc/fieldmul.cu`` and
-``csrc/planar.cu``; this module holds the wrappers and, beside each
-kernel, its plain PyTorch version.
+the planar entries of :351-383; ``quad_terms_planar`` is ``_k_mulmod``'s
+planar entry redesigned around its one caller, the check's
+``jnp.take`` + ``mulmod_planar`` + ``submod_planar`` + ``concatenate`` at
+``ligero_prover_tpu/zkp/executor.py:233-250``).  The CUDA sources are
+``csrc/fieldmul.cu`` and ``csrc/planar.cu``; this module holds the
+wrappers and, beside each kernel, its plain PyTorch version.
 
 A wrapper runs the plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises;
@@ -42,6 +47,7 @@ from __future__ import annotations
 import math
 from collections import Counter
 
+import numpy as np
 import torch
 import torch.nn.functional as nnf
 
@@ -55,11 +61,12 @@ PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
 FMA = "mulmod_fma_planar"     # KE's three-operand mode: acc + x*y
 FMA_MODE = 5
+QUAD = "quad_terms_planar"    # KE mulmod around the check: rows by index
 STAGES = ("butterfly_dit", "butterfly_dif")   # KB: counted once per pass
 MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 #                         shared-memory tile (csrc/planar.cu, kLog2Tile)
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
-                                 *PLANAR_MODE, FMA)}
+                                 *PLANAR_MODE, FMA, QUAD)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
 
@@ -243,11 +250,15 @@ def mont_mul_planar_plain(x, y):
     return _on_planes(_mont_plain, x, y)
 
 
+def _mulmod_planes(x, y):
+    r2 = _scalar_planes(to_torch(R2_LIMBS, x.device), x.dim())
+    return _on_planes(_mont_plain, _on_planes(_mont_plain, x, y), r2)
+
+
 def mulmod_planar_plain(x, y):
     """Plain version of KE mulmod: x*y mod p over limb planes."""
     PLAIN_CALLS["mulmod_planar"][x.device.type] += 1
-    r2 = _scalar_planes(to_torch(R2_LIMBS, x.device), x.dim())
-    return _on_planes(_mont_plain, _on_planes(_mont_plain, x, y), r2)
+    return _mulmod_planes(x, y)
 
 
 def mont_mul_scalar_planar_plain(x, s):
@@ -260,9 +271,22 @@ def mont_mul_scalar_planar_plain(x, s):
 def mulmod_fma_planar_plain(acc, x, y):
     """Plain version of KE mulmod_fma: (acc + x*y) mod p over limb planes."""
     PLAIN_CALLS[FMA][x.device.type] += 1
-    r2 = _scalar_planes(to_torch(R2_LIMBS, x.device), x.dim())
-    prod = _on_planes(_mont_plain, _on_planes(_mont_plain, x, y), r2)
-    return _on_planes(fo.addmod, acc, prod)
+    return _on_planes(fo.addmod, acc, _mulmod_planes(x, y))
+
+
+def quad_terms_planar_plain(e, tri_idx, pair_idx):
+    """Plain version of quad-terms: the rows of e (8, B, n) gathered by
+    index, t = e[x]*e[y] - e[z] for each (x, y, z) of tri_idx (T, 3) and
+    d = e[x] - e[y] for each (x, y) of pair_idx (P, 2), as (8, T+P, n)."""
+    PLAIN_CALLS[QUAD][e.device.type] += 1
+    tri, pair = (torch.as_tensor(np.asarray(i), dtype=torch.int64,
+                                 device=e.device).reshape(-1, w)
+                 for i, w in ((tri_idx, 3), (pair_idx, 2)))
+    ex, ey, ez = (e.index_select(1, tri[:, i]) for i in range(3))
+    px, py = (e.index_select(1, pair[:, i]) for i in range(2))
+    t_ = _on_planes(fo.submod, _mulmod_planes(ex, ey), ez)    # (8, T, n)
+    d_ = _on_planes(fo.submod, px, py)                        # (8, P, n)
+    return torch.cat([t_, d_], dim=1)
 
 
 def _dit_stage(x, tw):
@@ -390,6 +414,56 @@ def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
     return out
 
 
+def quad_indices(e: torch.Tensor, tri_idx, pair_idx):
+    """quad-terms' argument check of its row indices, on the host: tri_idx
+    (T, 3) and pair_idx (P, 2) as int32 numpy arrays, each index in
+    [0, B) for e (8, B, n).  Indices come as numpy arrays or CPU tensors
+    (the check would otherwise wait for the device); an index out of
+    range raises IndexError, as ``index_select`` does."""
+    if e.dim() != 3 or e.shape[0] != NLIMB:
+        raise ValueError(f"{QUAD}: e must be (8, B, n) limb planes, got "
+                         f"{tuple(e.shape)}")
+    out = []
+    for idx, width, rows in ((tri_idx, 3, "T"), (pair_idx, 2, "P")):
+        if isinstance(idx, torch.Tensor):
+            if idx.device.type != "cpu":
+                raise ValueError(f"{QUAD}: row indices must be on the host, "
+                                 f"got a tensor on {idx.device}")
+            idx = idx.numpy()
+        a = np.asarray(idx)
+        if a.ndim != 2 or a.shape[1] != width \
+                or not np.issubdtype(a.dtype, np.integer):
+            raise ValueError(f"{QUAD}: row indices must be ({rows}, "
+                             f"{width}) integers, got {a.dtype} {a.shape}")
+        if a.size and (a.min() < 0 or a.max() >= e.shape[1]):
+            raise IndexError(f"{QUAD}: row index out of range [0, "
+                             f"{e.shape[1]}): {a.min()}..{a.max()}")
+        out.append(np.ascontiguousarray(a, np.int32))
+    return out
+
+
+def _quad_terms(e: torch.Tensor, tri: np.ndarray,
+                pair: np.ndarray) -> torch.Tensor:
+    _check_operands(QUAD, e)
+    e, e_ls = _with_plane_stride(e)
+    b_, n = e.shape[1:]
+    t_, p_ = len(tri), len(pair)
+    out = torch.empty((NLIMB, t_ + p_, n), dtype=torch.int32,
+                      device=e.device)
+    # one upload of both index sets; from pageable memory it is staged at
+    # once and does not wait for the device
+    idx = torch.from_numpy(np.concatenate([tri.ravel(), pair.ravel()])) \
+        .to(e.device, non_blocking=True)
+    base = idx.data_ptr()
+    rc = kernels.lib().ligero_planar_quad_terms(
+        e.data_ptr(), e_ls, b_, n, base if t_ else None, t_,
+        base + 12 * t_ if p_ else None, p_, out.data_ptr(),
+        kernels.stream_handle(e.device))
+    kernels.check(rc, QUAD)
+    LAUNCHES[QUAD] += 1
+    return out
+
+
 def _pass(name: str, x: torch.Tensor, tws: torch.Tensor, t0: int, s: int,
           out: torch.Tensor | None) -> torch.Tensor:
     _check_operands(name, x)
@@ -498,6 +572,18 @@ def mulmod_planar(x, y):
     if _on_cpu(x, y):
         return mulmod_planar_plain(x, y)
     return _eltwise("mulmod_planar", x, y)
+
+
+def quad_terms_planar(e, tri_idx, pair_idx):
+    """The quadratic test's terms from the rows of e (8, B, n), as
+    (8, T+P, n): row t < T is e[x]*e[y] - e[z] mod p for the t-th (x, y, z)
+    of tri_idx (T, 3), row T+p is e[x] - e[y] mod p for the p-th (x, y)
+    of pair_idx (P, 2).  The indices are host arrays, checked here before
+    anything runs."""
+    tri, pair = quad_indices(e, tri_idx, pair_idx)
+    if _on_cpu(e):
+        return quad_terms_planar_plain(e, tri, pair)
+    return _quad_terms(e, tri, pair)
 
 
 def mont_mul_scalar_planar(x, s):

@@ -128,7 +128,8 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
     Montgomery prescale: the per-row scalars are taken to s*R by one
     mont_mul with R^2, so each big product is ONE mont_mul
     (x * sR * R^-1 = x*s); the linear test (both operands plain) sums the
-    mont_mul products first and scales the (8, n) sum by R once."""
+    mont_mul products first and scales the (8, n) sum by R once.
+    `tri_idx`/`pair_idx` are host arrays: quad-terms checks them there."""
     e = _encode_planes(rows, dom_k, dom_n, n, mxu_tabs)       # (8, B, n)
     r2 = _r2(e.device)
 
@@ -147,14 +148,12 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
         r = _encode_planes(rands, dom_k, dom_n, n, mxu_tabs)
         lin = scale_r(_tree_sum_mod_planar(fm.mont_mul_planar(e, r)))
         linear = fm.addmod_planar(planes(linear), lin).T.contiguous()
-    # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms, the
-    # triples and pairs concatenated into one product and one tree sum
-    ex, ey, ez = (e.index_select(1, tri_idx[:, i]) for i in range(3))
-    px, py = (e.index_select(1, pair_idx[:, i]) for i in range(2))
-    t_ = fm.submod_planar(fm.mulmod_planar(ex, ey), ez)       # (8, T, n)
-    d_ = fm.submod_planar(px, py)                             # (8, P, n)
+    # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms: the
+    # triple and pair terms as one (8, T+P, n) launch that reads the rows
+    # of e by index, then one product and one tree sum
+    terms = fm.quad_terms_planar(e, tri_idx, pair_idx)
     scals = scale_r(torch.cat([tri_r, pair_r]).T.contiguous())   # (8, T+P)
-    prods = fm.mont_mul_planar(torch.cat([t_, d_], dim=1), scals[:, :, None])
+    prods = fm.mont_mul_planar(terms, scals[:, :, None])
     quad = fm.addmod_planar(planes(quad), _tree_sum_mod_planar(prods))
     return code.T.contiguous(), linear, quad.T.contiguous()
 
@@ -297,9 +296,12 @@ class TorchExecutor:
 
     def check_step(self, accs, rows, rands, code_rs, tri_idx, tri_r,
                    pair_idx, pair_r, rands_zero=False):
+        # the planar path reads the quadratic rows by index on the device
+        # and checks the indices on the host
+        index = (lambda a: a) if self.use_planar else self._index
         return _check_body(*accs, self._limbs(rows), self._limbs(rands),
-                           self._limbs(code_rs), self._index(tri_idx),
-                           self._limbs(tri_r), self._index(pair_idx),
+                           self._limbs(code_rs), index(tri_idx),
+                           self._limbs(tri_r), index(pair_idx),
                            self._limbs(pair_r), self.codec.dom_k,
                            self.codec.dom_n, self.n, self.use_planar,
                            rands_zero, self._mxu_tabs())

@@ -10,7 +10,7 @@ the vbn254fr guest of ``chip_smoke.make_wat`` at k=8192: one warm-up prove;
 one timed prove (wall and stage seconds, the port's launch counters); one
 prove under ``torch.profiler`` (device kernel time, kernel count, the top
 device ops, the device ms and launches of each of the port's own
-kernels); and, before any prove, one 16-row k->n encode as the
+kernels and of the library's row gathers and concatenations); and, before any prove, one 16-row k->n encode as the
 pipelines call it, timed by the host clock and by CUDA events, with its
 device kernels by name (the int8 engine's three ``torch._int_mm`` products
 show under their library names).  The device busy share is the profiled kernel time over the
@@ -62,6 +62,22 @@ def port_kernels(events) -> dict:
         if m:
             ms, count = out.get(m.group(0), (0.0, 0))
             out[m.group(0)] = (ms + _device_time_us(e) / 1e3, count + e.count)
+    return out
+
+
+# library kernels by a fragment of their profiler name: the row gathers
+# and concatenations, of which quad-terms took over the check's on the
+# planar path
+ATEN_KERNELS = {"index_select": "indexSelect", "cat": "CatArrayBatchedCopy"}
+
+
+def aten_kernels(events) -> dict:
+    """Device ms and launches of the library kernels of ATEN_KERNELS."""
+    out = {}
+    for name, frag in ATEN_KERNELS.items():
+        hits = [e for e in events if frag in e.key]
+        out[name] = (sum(_device_time_us(e) for e in hits) / 1e3,
+                     sum(e.count for e in hits))
     return out
 
 
@@ -170,7 +186,8 @@ def profile_config(name: str, rounds: int) -> dict:
                    device_kernels=n_kernels,
                    device_kernels_per_row=n_kernels / res.num_rows,
                    top_device_ops=_by_device_time(dev, 12),
-                   port_kernels=port_kernels(dev))
+                   port_kernels=port_kernels(dev),
+                   aten_kernels=aten_kernels(dev))
     return out
 
 

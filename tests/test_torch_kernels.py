@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod), K3
 (column SHA-256 absorb, AoS and planar rows), KB (planar butterfly passes)
-and KE (planar element-wise ops) against their plain PyTorch versions, the
-golden Python-int model and hashlib; the executor (planar, the CUDA
+and KE (planar element-wise ops and quad-terms) against their plain
+PyTorch versions, the golden Python-int model and hashlib; the executor (planar, the CUDA
 default, and AoS) and a whole proof on the card against the same on the
 CPU.  Every test here needs a CUDA device and
 skips without one.  This file imports no JAX, so it runs on a machine
@@ -306,6 +306,52 @@ def test_aos_executor_steps_match_cpu(cuda_device, monkeypatch):
     cw = rand_limbs(gen, (n,))
     np.testing.assert_array_equal(convert.to_numpy(gpu.decode(cw)),
                                   convert.to_numpy(cpu.decode(cw)))
+
+
+@pytest.mark.parametrize("name", ["mont_mul_planar", "mulmod_planar"])
+def test_ke_products_on_unaligned_and_odd_rows(cuda_device, name):
+    """KE mont_mul and mulmod where 16-byte units do not fit: rows of an
+    odd length, and plane-stride views that start off a 16-byte
+    boundary, times a per-row scalar and a full plane."""
+    gen = np.random.default_rng(len(name) + 40)
+    kernel, plain = getattr(tfm, name), getattr(tfm, name + "_plain")
+    x = _planes(rand_limbs(gen, (6, 1001), False), cuda_device)
+    y = _planes(rand_limbs(gen, (6, 1001), False), cuda_device)
+    s = _planes(rand_limbs(gen, (6, 1), False), cuda_device)
+    cases = [(x, s), (x, y), (x[:, 1:4], s[:, 2:5]), (x[:, 1:4], y[:, 3:6])]
+    for a, b in cases:
+        got = kernel(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("n", [1024, 1030])
+def test_quad_terms_kernel_matches_plain(cuda_device, n):
+    """quad-terms on the card: repeated indices, zero-padded entries, no
+    pairs, no triples, a plane-stride view of the batch; 16-byte units
+    (n = 1024) and single elements (n = 1030); an index out of range
+    raises before the launch."""
+    gen = np.random.default_rng(n)
+    e = _planes(rand_limbs(gen, (7, n), False), cuda_device)
+    edges = ints_to_limbs(NONCANONICAL + EDGES)
+    e[:, 0, :len(edges)] = _planes(edges, cuda_device)
+    e[:, 1, :len(edges)] = _planes(edges[::-1].copy(), cuda_device)
+    tri = gen.integers(0, 3, (5, 3)).astype(np.int32)
+    pair = gen.integers(0, 3, (3, 2)).astype(np.int32)
+    padded = np.zeros((4, 3), np.int32), np.zeros((4, 2), np.int32)
+    padded[0][0], padded[1][0] = (0, 1, 2), (1, 0)
+    cases = [(e, tri, pair), (e, *padded), (e, tri, pair[:0]),
+             (e, tri[:0], pair), (e[:, 2:6], tri, pair)]
+    before = tfm.LAUNCHES[tfm.QUAD]
+    for x, t, p in cases:
+        got = tfm.quad_terms_planar(x, t, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), tfm.quad_terms_planar_plain(
+            x.cpu(), t, p))
+    assert tfm.LAUNCHES[tfm.QUAD] == before + len(cases)
+    with pytest.raises(IndexError):
+        tfm.quad_terms_planar(e, tri + 7, pair)
+    assert tfm.LAUNCHES[tfm.QUAD] == before + len(cases)
 
 
 def test_mulmod_fma_kernel_matches_plain(cuda_device):

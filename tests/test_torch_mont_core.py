@@ -65,6 +65,56 @@ extern "C" uint32_t k2_threads(uint32_t n) { return mulmod_threads(n); }
 
 // KE mont_scalar as its kernel runs it: the scalar's limbs read once (at
 // limb stride s_ls), then element i on thread i
+// KE mont_mul and mulmod as launch_product runs them: every thread of
+// every CTA of the run geometry (rows of y_div > 1 elements with one y
+// element each, else one run with y a full plane), 4-element units if vec
+template <bool kMulmod, bool kRow>
+static void ke_product_runs(const uint32_t* x, uint32_t x_ls,
+                            const uint32_t* y, uint32_t y_ls, uint32_t* out,
+                            const ligero_pl::RunGeom& g) {
+  for (uint32_t c = 0; c < ligero_pl::run_ctas(g); ++c)
+    for (uint32_t t = 0; t < ligero_pl::kRunThreads; ++t) {
+      if (g.vec)
+        ligero_pl::run_product_at<kMulmod, kRow, 4>(x, x_ls, y, y_ls, out, g,
+                                                    c, t);
+      else
+        ligero_pl::run_product_at<kMulmod, kRow, 1>(x, x_ls, y, y_ls, out, g,
+                                                    c, t);
+    }
+}
+
+extern "C" void ke_product(const uint32_t* x, uint32_t x_ls,
+                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
+                           uint32_t* out, uint32_t n, int mulmod, int vec) {
+  const bool row = y_div > 1u;
+  const ligero_pl::RunGeom g = ligero_pl::run_geom(n, row ? y_div : n, vec);
+  if (mulmod && row) ke_product_runs<true, true>(x, x_ls, y, y_ls, out, g);
+  else if (mulmod) ke_product_runs<true, false>(x, x_ls, y, y_ls, out, g);
+  else if (row) ke_product_runs<false, true>(x, x_ls, y, y_ls, out, g);
+  else ke_product_runs<false, false>(x, x_ls, y, y_ls, out, g);
+}
+
+// quad-terms as ligero_planar_quad_terms runs it: rows of n elements,
+// every thread of every CTA
+extern "C" void quad_terms(const uint32_t* e, uint32_t e_ls, uint32_t n,
+                           const int32_t* tri, uint32_t T,
+                           const int32_t* pair, uint32_t P, uint32_t* out,
+                           int vec) {
+  const ligero_pl::RunGeom g = ligero_pl::run_geom((T + P) * n, n, vec);
+  for (uint32_t c = 0; c < ligero_pl::run_ctas(g); ++c)
+    for (uint32_t t = 0; t < ligero_pl::kRunThreads; ++t) {
+      if (vec)
+        ligero_pl::quad_terms_at<4>(e, e_ls, tri, T, pair, out, g, c, t);
+      else
+        ligero_pl::quad_terms_at<1>(e, e_ls, tri, T, pair, out, g, c, t);
+    }
+}
+
+// the CTAs of a launch over n elements in runs of len
+extern "C" uint32_t run_ctas(uint32_t n, uint32_t len, int vec) {
+  return ligero_pl::run_ctas(ligero_pl::run_geom(n, len, vec));
+}
+
 extern "C" void mont_scalar(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* sc, uint32_t s_ls, uint32_t* out,
                             uint32_t n) {
@@ -78,25 +128,48 @@ extern "C" void mont_scalar(const uint32_t* x, uint32_t x_ls,
 PRODUCTS = {"mont_mul": 0, "mont_mul_cc": 1, "mulmod": 2, "mulmod_cc": 3}
 
 
-@pytest.fixture(scope="module")
-def core(tmp_path_factory):
+# the KE run geometry as built for the card, and with small CTAs of
+# several units per thread, so that threads loop over their units
+RUN_BUILDS = {"default": [], "looped": ["-DLIGERO_RUN_THREADS=32",
+                                        "-DLIGERO_RUN_UNITS=3"]}
+
+
+def _build(tmp_path_factory, name, defines):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
-    work = tmp_path_factory.mktemp("mont_core")
+    work = tmp_path_factory.mktemp(name)
     (work / "harness.cpp").write_text(HARNESS)
     so = work / "libmontcore.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", f"-I{CSRC}", "-o", str(so),
-                    str(work / "harness.cpp")], check=True)
+                    "-Wno-unknown-pragmas", *defines, f"-I{CSRC}", "-o",
+                    str(so), str(work / "harness.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
-    ptr, u32 = ctypes.c_void_p, ctypes.c_uint32
-    lib.product.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int]
+    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    lib.product.argtypes = [ptr, ptr, ptr, i32, i32]
     lib.k2.argtypes = [ptr, ptr, ptr, u32, u32]
     lib.k2_threads.argtypes = [u32]
     lib.k2_threads.restype = u32
     lib.mont_scalar.argtypes = [ptr, u32, ptr, u32, ptr, u32]
+    lib.ke_product.argtypes = [ptr, u32, ptr, u32, u32, ptr, u32, i32, i32]
+    lib.quad_terms.argtypes = [ptr, u32, u32, ptr, u32, ptr, u32, ptr, i32]
+    lib.run_ctas.argtypes = [u32, u32, i32]
+    lib.run_ctas.restype = u32
     return lib
+
+
+@pytest.fixture(scope="module")
+def core(tmp_path_factory):
+    return _build(tmp_path_factory, "mont_core", [])
+
+
+@pytest.fixture(scope="module", params=list(RUN_BUILDS))
+def run_core(request, tmp_path_factory):
+    """The harness built with each KE run geometry of RUN_BUILDS."""
+    if request.param == "default":
+        return request.getfixturevalue("core")
+    return _build(tmp_path_factory, "mont_core_" + request.param,
+                  RUN_BUILDS[request.param])
 
 
 def run_product(core, name, xs, ys) -> list[int]:
@@ -259,3 +332,117 @@ def test_mont_scalar_element_function_matches_plain(core, shape, x_ls):
             to_t(rows.T.copy().reshape((8,) + shape)),
             to_t(ints_to_limbs([edge])[0]))
         np.testing.assert_array_equal(out, to_np(want).reshape(8, n))
+
+
+def _wild_rows(gen, count):
+    """`count` (count, 8) uint32 operands: non-canonical random ones with
+    the edge values and carry-heavy patterns in the first slots."""
+    rows = rand_limbs(gen, (count,), canonical=False)
+    pats = sorted(set(pattern_pairs()[1]))
+    special = ints_to_limbs(EDGES + pats[::3])[:count]
+    rows[:len(special)] = special
+    return rows
+
+
+def _strided(planes, ls):
+    """(8, ...) uint32 planes stored at limb stride ls >= their size."""
+    flat = planes.reshape(8, -1)
+    out = np.zeros((8, ls), dtype=np.uint32)
+    out[:, :flat.shape[1]] = flat
+    return out
+
+
+@pytest.mark.parametrize("vec,n", [(True, 2048), (False, 1030)])
+@pytest.mark.parametrize("form", ["row", "full", "one"])
+@pytest.mark.parametrize("name", ["mont_mul_planar", "mulmod_planar"])
+def test_ke_product_element_function_matches_plain(run_core, name, form,
+                                                   vec, n):
+    """KE mont_mul and mulmod on the carry-chain products, every thread of
+    the run geometry, on (8, 3, n) rows at a padded limb stride: times a
+    per-row scalar (8, 3, 1) read once per thread (the check's calls),
+    a full plane (the linear test) or one scalar for all (8, 1, 1);
+    16-byte units (n a multiple of 4) or single elements; non-canonical
+    operands with the edge values and carry-heavy limb patterns; against
+    the plain versions."""
+    rows = 3
+    gen = np.random.default_rng(n + len(form) + len(name))
+    x = _wild_rows(gen, rows * n).T.reshape(8, rows, n)
+    yshape = {"row": (rows, 1), "full": (rows, n), "one": (1, 1)}[form]
+    ycount = int(np.prod(yshape))
+    y = _wild_rows(gen, ycount)[::-1].T.reshape((8,) + yshape)
+    pad = 4 if vec else 3
+    xs, ys = _strided(x, rows * n + pad), _strided(y, ycount + pad)
+    y_div = {"row": n, "full": 1, "one": rows * n}[form]
+    out = np.zeros((8, rows * n), dtype=np.uint32)
+    run_core.ke_product(xs.ctypes.data, rows * n + pad, ys.ctypes.data,
+                        ycount + pad, y_div, out.ctypes.data, rows * n,
+                        int(name == "mulmod_planar"), int(vec))
+    want = getattr(tfm, name + "_plain")(to_t(x), to_t(y))
+    np.testing.assert_array_equal(out, to_np(want).reshape(8, rows * n))
+
+
+def _quad_indices(case, b):
+    """(tri (T, 3), pair (P, 2)) int32 row indices of one pattern."""
+    gen = np.random.default_rng(len(case))
+    if case == "repeats":
+        return (gen.integers(0, 2, (5, 3)).astype(np.int32),
+                gen.integers(0, 2, (4, 2)).astype(np.int32))
+    if case == "same":                       # x = y = z, x = y
+        v = gen.integers(0, b, 4).astype(np.int32)
+        return np.repeat(v[:, None], 3, 1), np.repeat(v[:3, None], 2, 1)
+    if case == "padded":                     # _pack_quads' zero entries
+        tri = np.zeros((b, 3), np.int32)
+        pair = np.zeros((b, 2), np.int32)
+        tri[:2] = gen.integers(0, b, (2, 3))
+        pair[:1] = gen.integers(0, b, (1, 2))
+        return tri, pair
+    if case == "t_ne_p":
+        return (gen.integers(0, b, (2, 3)).astype(np.int32),
+                gen.integers(0, b, (7, 2)).astype(np.int32))
+    if case == "no_pairs":
+        return (gen.integers(0, b, (4, 3)).astype(np.int32),
+                np.zeros((0, 2), np.int32))
+    assert case == "no_triples"
+    return (np.zeros((0, 3), np.int32),
+            gen.integers(0, b, (3, 2)).astype(np.int32))
+
+
+QUAD_CASES = ["repeats", "same", "padded", "t_ne_p", "no_pairs",
+              "no_triples"]
+
+
+@pytest.mark.parametrize("vec,n", [(True, 1028), (False, 130)])
+@pytest.mark.parametrize("case", QUAD_CASES)
+def test_quad_terms_element_function_matches_plain(run_core, case, vec, n):
+    """quad-terms, every thread of the run geometry (one output row per
+    run), reading the rows of e (8, 6, n) at a padded limb stride by
+    index: repeated indices, x = y = z, zero-padded entries, T != P, no
+    pairs, no triples; non-canonical rows with the edge values and
+    carry-heavy patterns; against fm.quad_terms_planar_plain."""
+    b = 6
+    gen = np.random.default_rng(n + len(case))
+    e = _wild_rows(gen, b * n).T.reshape(8, b, n)
+    e[:, 1] = e[:, 0, ::-1]                  # edges meet other edges
+    tri, pair = _quad_indices(case, b)
+    e_ls = b * n + (8 if vec else 5)
+    es = _strided(e, e_ls)
+    t_, p_ = len(tri), len(pair)
+    out = np.zeros((8, (t_ + p_) * n), dtype=np.uint32)
+    run_core.quad_terms(es.ctypes.data, e_ls, n, tri.ctypes.data, t_,
+                        pair.ctypes.data, p_, out.ctypes.data, int(vec))
+    want = tfm.quad_terms_planar_plain(to_t(e), tri, pair)
+    assert want.shape == (8, t_ + p_, n)
+    np.testing.assert_array_equal(out, to_np(want).reshape(8, -1))
+
+
+@pytest.mark.parametrize("n,length,vec", [(16 * 32768, 32768, 1),
+                                          (32 * 32768, 32768, 1),
+                                          (16 * 32768, 16 * 32768, 1),
+                                          (3 * 1030, 1030, 0),
+                                          (16 * 6, 6, 0)])
+def test_run_geometry_matches_chip_smoke(core, n, length, vec):
+    """The CTAs of KE mont_mul, mulmod and quad-terms at the check's calls
+    and at odd sizes, as chip_smoke.py computes them for the launch
+    floor."""
+    from chip_smoke import run_grid
+    assert core.run_ctas(n, length, vec) == run_grid(n, length, vec)[0]
