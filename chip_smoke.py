@@ -7,10 +7,11 @@ Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and reports each kernel's registers, spills and SASS
 counts, checks each kernel against its plain PyTorch version at the shapes
 of the main path and times it (KB per butterfly transform, as its planned
-passes, beside the one-stage-per-launch composition; K2 and KE mont_scalar
-also at their small calls, beside the launch floor of an empty kernel with
-the same grid; KE mont_mul at the check's three calls and quad-terms beside
-the nine launches it replaced), checks that small proofs made
+passes, beside the one-stage-per-launch composition; K2, KE mont_scalar
+and K3 (AoS rows, the verifier's 192 columns) also at their small calls,
+beside the launch floor of an empty kernel with the same grid; KE mont_mul
+at the check's three calls and quad-terms beside the nine launches it
+replaced), checks that small proofs made
 on the GPU in the planar and the AoS configuration, each with the butterfly
 and with the int8 encode engine, are byte-identical to the same proofs made
 on the CPU, then drives the configurations through the port's
@@ -54,9 +55,14 @@ SMS = 132
 # Results per clock per SM for compute capability 9.0 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput table): 64 for 32-bit integer
 # multiply, multiply-add and extended-precision multiply-add, the class of
-# one 32x32->64-bit product (IMAD.WIDE); the SM issues at most 4 warp
-# instructions, 128 thread instructions, per clock in all.
+# one 32x32->64-bit product (IMAD.WIDE); 64 for 32-bit integer add and
+# subtract, for 32-bit shifts, for 32-bit bitwise AND, OR and XOR and for
+# funnel shifts, the integer pipe's rows (16 INT32 lanes per SM
+# sub-partition, beside 32 FP32 lanes); the SM issues at most 4 warp
+# instructions, 128 thread instructions, per clock in all (the 32-bit
+# floating-point add, multiply and multiply-add row).
 IMAD_PER_CLK = 64
+INT_PER_CLK = 64
 ISSUE_PER_CLK = 128
 # The least integer work of each kernel per thread and iteration, counted
 # from the function it computes, not from its compiled code.  A Montgomery
@@ -77,21 +83,30 @@ PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
 # funnel shift, a 3-input xor/choose/majority one LOP3, a 2- or 3-input add
 # one IADD3): 64 rounds of 14 (Sigma0, Sigma1: 4 each; Ch, Maj: 1 each;
 # 4 adds), 48 schedule words of 10 (sigma0, sigma1: 4 each; 2 adds) and the
-# 8 state adds.
+# 8 state adds: 1,384 in all (SHA_OPS), at the issue rate.  Of them, the
+# rotates, shifts, xors, Ch and Maj (64 x 10 + 48 x 8 = 1,024, SHA_INT_OPS)
+# run only on the integer pipe, at INT_PER_CLK; the adds may also issue as
+# IMAD on the FMA pipe.  The bound takes the larger of the two times.
 SHA_OPS = {"sha256_absorb": 64 * 14 + 48 * 10 + 8,
            "sha256_absorb_planar": 64 * 14 + 48 * 10 + 8}
+SHA_INT_OPS = {"sha256_absorb": 64 * 10 + 48 * 8,
+               "sha256_absorb_planar": 64 * 10 + 48 * 8}
 # The signed byte sweep of a renormalisation: 66 steps of an add, a mask,
 # an arithmetic shift and a shift-or into the packed limb (5 operations);
 # the repack to signed digits 32 steps of 5 (extract, add, compare, fix,
-# insert).  Counted at the same rate as the SHA operations.
+# insert).  All integer-pipe operations, at INT_PER_CLK.
 SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + 32 * 5,
              "renorm_mid": 66 * 5 + 32 * 5, "digitize": 32 * 5}
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 # mangled name fragment of each kernel's device function
 SASS_NAME = {
     "mont_mul": "mont_mul_kernel", "mulmod": "mulmod_kernel",
-    "sha256_absorb": "absorb_kernelILb0E",
-    "sha256_absorb_planar": "absorb_kernelILb1E",
+    # K3 at the commit step's tile (128 columns per CTA) and at the
+    # verifier's (32): both roles in one function, one compression each
+    "sha256_absorb": "absorb_tile_kernelILb0ELi128E",
+    "sha256_absorb_planar": "absorb_tile_kernelILb1ELi128E",
+    "sha256_absorb_t32": "absorb_tile_kernelILb0ELi32E",
+    "sha256_absorb_planar_t32": "absorb_tile_kernelILb1ELi32E",
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
@@ -310,14 +325,19 @@ def run_grid(n: int, length: int, vec: bool) -> tuple[int, int]:
 
 def bound(name: str, nbytes: int, threads: int, iters: int = 1):
     """(least ms, what bounds it): the larger of the bytes over HBM
-    bandwidth and the kernel's least integer work (``PRODUCTS`` at the
-    multiply-add rate, ``SHA_OPS`` and ``SWEEP_OPS`` at ``ISSUE_PER_CLK``)
-    for `threads`
-    threads of `iters` iterations each."""
+    bandwidth and the kernel's least integer work for `threads` threads
+    of `iters` iterations each: ``PRODUCTS`` at the multiply-add rate,
+    the integer-pipe operations (``SHA_INT_OPS``, ``SWEEP_OPS``) at
+    ``INT_PER_CLK`` and all of them (``PRODUCTS``, ``SHA_OPS``,
+    ``SWEEP_OPS``) at ``ISSUE_PER_CLK``."""
     rate = SMS * CARD["clock_hz"]
     work = threads * iters
-    t_ops = max(PRODUCTS.get(name, 0) * work / (rate * IMAD_PER_CLK),
-                (SHA_OPS.get(name, 0) + SWEEP_OPS.get(name, 0)) * work
+    products = PRODUCTS.get(name, 0)
+    sweep = SWEEP_OPS.get(name, 0)
+    t_ops = max(products * work / (rate * IMAD_PER_CLK),
+                (SHA_INT_OPS.get(name, 0) + sweep) * work
+                / (rate * INT_PER_CLK),
+                (products + SHA_OPS.get(name, 0) + sweep) * work
                 / (rate * ISSUE_PER_CLK))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
@@ -457,31 +477,50 @@ def check_aos_kernels(device, gen, lib, stream, results):
                 "version")
 
     # K3: two flushes of B=16 over C=32768 columns; the first leaves an odd
-    # element pending, the second has valid_count < B
-    cols, bsz = 32768, 16
-    state = sha.initial_state(cols, device)
-    pending = torch.zeros((cols, 8), dtype=torch.int32, device=device)
-    flushes = [(limbs((bsz, cols), False), 15), (limbs((bsz, cols), False), 9)]
-    k_st = p_st = (state, pending, False)
-    for rows, valid in flushes:
-        k_st = sha.absorb_stream(*k_st, rows, valid)
-        p_st = sha.absorb_stream_plain(*p_st, rows, valid)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(k_st[0], p_st[0]), max_abs_err(k_st[1], p_st[1]))
-    require(k_st[2] == p_st[2] and k_st[2] is False, "K3 has_pending carry")
-    st_out, pend_out = torch.empty_like(state), torch.empty_like(pending)
-    report(results, "sha256_absorb", "B=16 C=32768 two flushes (15 then 9 "
-           "valid)", err,
-           launches_ms(lambda st, pe, rw, so, po: kernels.check(
-               lib.ligero_sha256_absorb(
-                   st.data_ptr(), pe.data_ptr(), rw.data_ptr(), so.data_ptr(),
-                   po.data_ptr(), cols, bsz, 0, 16, 0, stream),
-               "sha256_absorb"),
-               state, pending, flushes[0][0], st_out, pend_out),
-           cuda_ms(lambda: sha.absorb_stream_plain(
-               state, pending, False, flushes[0][0], 16), 3),
-           # 16 rows read, state in and out, the pending element written
-           bound("sha256_absorb", 32 * cols * (bsz + 3), cols, bsz // 2))
+    # element pending, the second has valid_count < B; then the same at the
+    # verifier's C=192 sampled columns
+    bsz = 16
+    for cols in (32768, 192):
+        state = sha.initial_state(cols, device)
+        pending = torch.zeros((cols, 8), dtype=torch.int32, device=device)
+        flushes = [(limbs((bsz, cols), False), 15),
+                   (limbs((bsz, cols), False), 9)]
+        k_st = p_st = (state, pending, False)
+        for rows, valid in flushes:
+            k_st = sha.absorb_stream(*k_st, rows, valid)
+            p_st = sha.absorb_stream_plain(*p_st, rows, valid)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(k_st[0], p_st[0]),
+                  max_abs_err(k_st[1], p_st[1]))
+        require(k_st[2] == p_st[2] and k_st[2] is False,
+                f"K3 has_pending carry at C={cols}")
+        tile = sha.tile_for(cols)
+        st_out, pend_out = torch.empty_like(state), torch.empty_like(pending)
+        times = launches_ms(lambda st, pe, rw, so, po: kernels.check(
+            lib.ligero_sha256_absorb(
+                st.data_ptr(), pe.data_ptr(), rw.data_ptr(), so.data_ptr(),
+                po.data_ptr(), cols, bsz, 0, 16, 0, tile, stream),
+            "sha256_absorb"),
+            state, pending, flushes[0][0], st_out, pend_out)
+        plain_ms = cuda_ms(lambda: sha.absorb_stream_plain(
+            state, pending, False, flushes[0][0], 16), 3)
+        # 16 rows read, state in and out, the pending element written
+        bnd = bound("sha256_absorb", 32 * cols * (bsz + 3), cols, bsz // 2)
+        if cols != 192:
+            report(results, "sha256_absorb", f"B=16 C={cols} two flushes "
+                   "(15 then 9 valid)", err, times, plain_ms, bnd)
+            continue
+        floor = floor_ms(lib, stream, -(-cols // tile), 2 * tile)
+        CARD["sha256_absorb_verify"] = {
+            "ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log(f"phase 3: sha256_absorb at the verifier's (16, {cols}, 8), "
+            f"two flushes (15 then 9 valid), tile {tile}: max_abs_err={err} "
+            f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+            f"floor_ms={floor:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0, f"sha256_absorb at C={cols} equals its plain "
+                "version")
 
 
 def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
@@ -610,7 +649,8 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
            launches_ms(lambda st, pe, rw, so, po: kernels.check(
                lib.ligero_sha256_absorb(
                    st.data_ptr(), pe.data_ptr(), rw.data_ptr(), so.data_ptr(),
-                   po.data_ptr(), cols, bsz, 0, bsz, 1, stream),
+                   po.data_ptr(), cols, bsz, 0, bsz, 1, sha.tile_for(cols),
+                   stream),
                "sha256_absorb_planar"),
                state, pending, flushes[0][0], st_out, pend_out),
            cuda_ms(lambda: sha.absorb_stream_planar_plain(

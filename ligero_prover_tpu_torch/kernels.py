@@ -36,9 +36,9 @@ SIGNATURES = {
     "ligero_mont_mul": (_P, _P, _P, _I64, _I64, _I32, _P),
     # state_in, pending_in, rows, state_out, pending_out, C, B,
     # has_pending, valid_count, planar (rows (8, B, C) instead of
-    # (B, C, 8)), stream
+    # (B, C, 8)), tile (columns per CTA: 32 or 128), stream
     "ligero_sha256_absorb": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                             _I32, _P),
+                             _I32, _I32, _P),
     # x, tw (stage t0's plane), y, B, log2(N), in_n (DIT input width),
     # s (stages in the pass), dit, stream
     "ligero_planar_pass": (_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P),

@@ -7,8 +7,10 @@ serialized big-endian, so a block's 16 message words are exactly the raw
 limbs of two consecutive elements.
 
 :func:`absorb_stream` is the executor's flush of (B, C, 8) rows: on CUDA
-tensors it launches ``csrc/sha256.cu`` (K3, one thread per column), on CPU
-tensors it runs :func:`absorb_stream_plain`, the port of the reference's
+tensors it launches ``csrc/sha256.cu`` (K3: a CTA per tile of
+:func:`tile_for` columns, schedule and round warps handing blocks over
+through shared memory), on CPU tensors it runs
+:func:`absorb_stream_plain`, the port of the reference's
 ``_absorb_stream`` (``ligero_prover_tpu/zkp/executor.py:43-65``).
 :func:`absorb_stream_planar` is the same flush of (8, B, C) limb-major
 codewords (the planar codec's output), the port of
@@ -50,6 +52,11 @@ INIT_STATE = np.array([
     0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19], dtype=np.uint32)
 
 _K_INTS = [int(k) for k in K]
+
+# columns per CTA that csrc/sha256.cu is built for (tile_ok there), and the
+# SMs of the card the choice is made for (an H100 SXM has 132)
+TILES = (32, 128)
+SMS = 132
 
 LAUNCHES = {"sha256_absorb": 0, "sha256_absorb_planar": 0}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}   # by device type
@@ -131,6 +138,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def tile_for(cols: int) -> int:
+    """K3's columns per CTA for C = `cols`: 128 once that still gives every
+    SM a CTA (the commit step's 32,768 columns: 256 CTAs of 8 warps, each
+    SM sub-partition running a round warp beside a schedule warp), else
+    32 (the verifier's 192 sampled columns: 6 CTAs of 2 warps on 6 SMs)."""
+    return 128 if cols >= 128 * SMS else 32
+
+
 def _launch(name, state, pending, has_pending, rows, valid_count, planar):
     if rows.device.type != "cuda" or state.device != rows.device \
             or pending.device != rows.device:
@@ -157,7 +172,8 @@ def _launch(name, state, pending, has_pending, rows, valid_count, planar):
     rc = kernels.lib().ligero_sha256_absorb(
         state.data_ptr(), pending.data_ptr(), rows.data_ptr(),
         new_state.data_ptr(), new_pending.data_ptr(), cols, bsz, hp,
-        int(valid_count), int(planar), kernels.stream_handle(rows.device))
+        int(valid_count), int(planar), tile_for(cols),
+        kernels.stream_handle(rows.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return new_state, new_pending, (int(valid_count) + hp) % 2 == 1

@@ -287,6 +287,46 @@ def test_planar_sha_kernel_matches_plain(cuda_device, schedule):
     assert tsha.LAUNCHES["sha256_absorb_planar"] == before + len(schedule)
 
 
+@pytest.mark.parametrize("planar", [False, True], ids=["aos", "planar"])
+@pytest.mark.parametrize("cols", [192, 200, 128 * tsha.SMS + 5, 32768])
+def test_sha_kernel_at_each_tile(cuda_device, planar, cols):
+    """K3 at the verifier's C=192 (tile 32, whole tiles), a ragged last
+    tile at each tile size (200; 16,901 with tile 128) and the commit
+    step's C=32768, over the commit step's flushes at B=16 (15, 9 and 16
+    valid: up to 8 blocks, the pending element carried), against the plain
+    version and hashlib."""
+    gen = np.random.default_rng(cols + planar)
+    bsz = 16
+    k_st = (tsha.initial_state(cols, cuda_device),
+            torch.zeros((cols, 8), dtype=torch.int32, device=cuda_device),
+            False)
+    p_st = k_st
+    name = "sha256_absorb_planar" if planar else "sha256_absorb"
+    kernel = tsha.absorb_stream_planar if planar else tsha.absorb_stream
+    plain = tsha.absorb_stream_planar_plain if planar else \
+        tsha.absorb_stream_plain
+    before = tsha.LAUNCHES[name]
+    absorbed = []
+    for valid in (15, 9, 16):
+        rows = rand_limbs(gen, (bsz, cols), canonical=False)
+        absorbed.append(rows[:valid])
+        rows_t = to_t(rows, cuda_device)
+        if planar:
+            rows_t = rows_t.movedim(-1, 0).contiguous()
+        k_st = kernel(*k_st, rows_t, valid)
+        p_st = plain(*p_st, rows_t, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(k_st[0], p_st[0])
+        assert torch.equal(k_st[1], p_st[1])
+        assert k_st[2] == p_st[2]
+    assert tsha.LAUNCHES[name] == before + 3
+    stream = np.concatenate(absorbed, axis=0)
+    final = tsha.finalize(*k_st, stream.shape[0])
+    want = [hashlib.sha256(stream[:, c].astype(">u4").tobytes()).digest()
+            for c in range(cols)]
+    assert tsha.digests_to_bytes(final) == want
+
+
 def test_aos_executor_steps_match_cpu(cuda_device, monkeypatch):
     """The AoS configuration stays selectable on the card."""
     from ligero_prover_tpu_torch import convert
