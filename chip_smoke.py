@@ -7,21 +7,24 @@ Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and reports each kernel's registers, spills and SASS
 counts, checks each kernel against its plain PyTorch version at the shapes
 of the main path and times it (KB per butterfly transform, as its planned
-passes, beside the one-stage-per-launch composition; K2, KE mont_scalar
-and K3 (AoS rows, the verifier's 192 columns) also at their small calls,
-beside the launch floor of an empty kernel with the same grid; KE mont_mul
-at the check's three calls and quad-terms beside the nine launches it
-replaced), checks that small proofs made
-on the GPU in the planar and the AoS configuration, each with the butterfly
-and with the int8 encode engine, are byte-identical to the same proofs made
-on the CPU, then drives the configurations through the port's
-``prove``/``verify`` entry points at production geometry (k=8192, n=32768)
-on the vbn254fr Poseidon-style guest of ``bench/e2e_prove.py``: the planar
-butterfly path at full depth, the AoS path at a reduced depth, and the
-planar path with the int8 engine (``USE_MXU``) at full depth, whose proof
-must equal the butterfly path's byte for byte.  Each run counts the kernel
-launches it makes, from zero.  Any failure raises and exits non-zero; without a CUDA
-device it exits non-zero before doing anything.
+passes, beside the one-stage-per-launch composition; K1 at the AoS
+butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
+rows, the verifier's 192 columns) also at their small calls, beside the
+launch floor of an empty kernel with the same grid; one invmod ladder of
+K1 launches against the plain ladder; KE mont_mul at the check's three
+calls and quad-terms beside the nine launches it replaced), checks that
+small proofs made on the GPU in the planar and the AoS configuration, each
+with the butterfly and with the int8 encode engine, are byte-identical to
+the same proofs made on the CPU (the vbn254fr guest, an ECDSA guest with
+witness rows, and a vbn254fr bit decomposition whose division runs the
+invmod ladder through K1), then drives the configurations through the
+port's ``prove``/``verify`` entry points at production geometry (k=8192,
+n=32768) on the vbn254fr Poseidon-style guest of ``bench/e2e_prove.py``:
+the planar butterfly path at full depth, the AoS path at a reduced depth,
+and the planar path with the int8 engine (``USE_MXU``) at full depth, whose
+proof must equal the butterfly path's byte for byte.  Each run counts the
+kernel launches it makes, from zero.  Any failure raises and exits
+non-zero; without a CUDA device it exits non-zero before doing anything.
 
 The last two lines of output are the kernel table as JSON and the result
 line ``{"ok": true, "device": {...}}``.
@@ -47,6 +50,8 @@ SMALL_K = 256
 SEED = 20261016
 ROOT = Path(__file__).resolve().parent
 ECDSA = (ROOT / "tests" / "guests" / "ecdsa_p256.wat", [b"Ligero\x00"])
+# vbn254fr divmod: the invmod ladder of K1 launches on the planar path
+BIT_DECOMPOSE = ROOT / "tests" / "guests" / "bit_decompose.wat"
 
 # The card's published rates, for each kernel's bound (least time).
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -100,7 +105,8 @@ SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + 32 * 5,
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 # mangled name fragment of each kernel's device function
 SASS_NAME = {
-    "mont_mul": "mont_mul_kernel", "mulmod": "mulmod_kernel",
+    # K1 with its 32-bit index (below 2^31 elements)
+    "mont_mul": "mont_mul_kernelIjE", "mulmod": "mulmod_kernel",
     # K3 at the commit step's tile (128 columns per CTA) and at the
     # verifier's (32): both roles in one function, one compression each
     "sha256_absorb": "absorb_tile_kernelILb0ELi128E",
@@ -304,8 +310,8 @@ def floor_ms(lib, stream, blocks: int, threads: int) -> float:
 
 
 def k2_grid(n: int) -> tuple[int, int]:
-    """K2's (blocks, threads) for n elements, as ``mulmod_threads`` in
-    csrc/fieldmul.cu chooses them."""
+    """K2's and K1's (blocks, threads) for n elements (K1's below 2^31),
+    as ``mulmod_threads`` in csrc/fieldmul.cu chooses them."""
     threads = 256
     while threads > 32 and -(-n // threads) < SMS:
         threads //= 2
@@ -408,7 +414,8 @@ def check_aos_kernels(device, gen, lib, stream, results):
     """K1, K2 and K3 (AoS rows) at the shapes of the AoS path."""
     import torch
     from ligero_prover_tpu_torch import kernels
-    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, fieldops as fo, \
+        sha256 as sha
 
     def limbs(shape, canonical=True):
         return random_limbs(gen, shape, device, canonical)
@@ -428,21 +435,64 @@ def check_aos_kernels(device, gen, lib, stream, results):
         return max_abs_err(got, want)
 
     # K1 at the DIT butterfly shape: (16, 16384) rows times a (16384, 8)
-    # twiddle broadcast over the batch
-    x, tw = limbs((16, 16384)), limbs((16384,))
-    err = compare("mont_mul", (x, tw))
-    err = max(err, compare("mont_mul", (limbs((16, 4096)), limbs((4096,)))))
-    # non-canonical operands in [p, 2^256), with edge values
+    # twiddle broadcast over the batch, and at the vbn254fr arena's
+    # (k, 8) rows times the same shape (the invmod ladder's squares) and
+    # times one constant (mont_mul_const, the ladder's last step): each
+    # checked on canonical operands and on non-canonical ones with the
+    # edge values, and timed beside the launch floor at K1's grid
     a = limbs((65536,), canonical=False)
     b = limbs((65536,), canonical=False)
     a[:6], b[:6] = edge_limbs(device), edge_limbs(device, reverse=True)
-    err = max(err, compare("mont_mul", (a, b)))
-    n1 = x.numel() // 8
-    report(results, "mont_mul", "(16*16384,8) x bcast (16384,8), "
-           "(16*4096,8), (65536,8) non-canonical", err,
-           field_ms("mont_mul", x, tw),
-           cuda_ms(lambda: fm.mont_mul_plain(x, tw), 3),
-           bound("mont_mul", 64 * n1 + 32 * 16384, n1))
+    for label, shape, y_shape in (("DIT", (16, 16384), (16384,)),
+                                  ("arena", (FULL_K,), (FULL_K,)),
+                                  ("arena constant", (FULL_K,), (1,))):
+        x, y = limbs(shape), limbs(y_shape)
+        xw, yw = limbs(shape, False), limbs(y_shape, False)
+        xw.view(-1, 8)[:6] = edge_limbs(device)
+        yw.view(-1, 8)[:min(6, yw.numel() // 8)] = \
+            edge_limbs(device, reverse=True)[:yw.numel() // 8]
+        cases = [(x, y), (xw, yw), (a, b)]
+        if label == "DIT":      # the DIT scan's narrower stages too
+            cases.append((limbs((16, 4096)), limbs((4096,))))
+        err = max(compare("mont_mul", args) for args in cases)
+        size, y_rows = x.numel() // 8, y.numel() // 8
+        times = field_ms("mont_mul", x, y)
+        floor = floor_ms(lib, stream, *k2_grid(size))
+        bnd = bound("mont_mul", 64 * size + 32 * y_rows, size)
+        if label == "DIT":
+            report(results, "mont_mul", "(16*16384,8) x bcast (16384,8), "
+                   "non-canonical and edge operands, (16*4096,8), "
+                   "(65536,8) non-canonical", err, times,
+                   cuda_ms(lambda: fm.mont_mul_plain(x, y), 3), bnd, floor)
+            continue
+        CARD[f"mont_mul_{label}"] = {"ms": times[0], "hot_ms": times[1],
+                                     "floor_ms": floor, "bound_ms": bnd[0]}
+        log(f"phase 3: mont_mul at the {label}'s {shape + (8,)} x "
+            f"{y_shape + (8,)}, grid {k2_grid(size)}: max_abs_err={err} "
+            f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+            f"floor_ms={floor:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0, f"mont_mul at the {label}'s shape equals its "
+                "plain version")
+    # one vector division's inverse as the arena runs it on the planar
+    # path: the invmod ladder of K1 launches at (k, 8), against the same
+    # ladder on the plain product
+    x = limbs((FULL_K,))
+    x[:2] = edge_limbs(device)[:2]                       # 0 and 1
+    before = fm.LAUNCHES["mont_mul"]
+    got = fo.invmod(x)
+    torch.cuda.synchronize()
+    ladder = fm.LAUNCHES["mont_mul"] - before
+    err = max_abs_err(got, fo.invmod(x, mul=fm.mont_mul_plain))
+    inv_ms = cuda_ms(lambda: fo.invmod(x), 3)
+    plain_ms = cuda_ms(lambda: fo.invmod(x, mul=fm.mont_mul_plain), 3)
+    CARD["invmod"] = {"launches": ladder, "ms": inv_ms,
+                      "plain_ms": plain_ms}
+    log(f"phase 3: invmod ladder on ({FULL_K}, 8): {ladder} mont_mul "
+        f"launches, max_abs_err={err} against the plain ladder; "
+        f"{inv_ms:.4f} ms by CUDA events, host launches included "
+        f"(plain ladder {plain_ms:.4f} ms)")
+    require(err == 0 and ladder == 383, "the invmod ladder of 383 K1 "
+            "launches equals the plain ladder")
     # K2 at the AoS path's check shape and at the shapes of its callers on
     # the planar path, the vbn254fr arena's (k, 8) rows and the verifier's
     # (B, 192, 8) sums: checked on canonical operands, on non-canonical
@@ -1011,7 +1061,8 @@ def check_mxu_kernels(device, gen, lib, stream, results, k=FULL_K):
 
     def renorm_launch(name, tw_args):
         """The C entry point on (slots, out) or, with a twiddle table
-        read at `tw_args` = (tw_bc, tw_c), on (slots, tw, out)."""
+        read at the shifts `tw_args` = (tw_lbc, tw_lc), on (slots, tw,
+        out)."""
         mode = mr.RENORM_MODE[name]
 
         def launch(slots, *rest):
@@ -1042,8 +1093,9 @@ def check_mxu_kernels(device, gen, lib, stream, results, k=FULL_K):
         extra = () if tw is None else (tw,)
         err = compare_cases(kernel, plain, [(s, *extra) for s in sets])
         slots = sets[0]
-        tw_args = (1, 1) if tw is None else mr.twiddle_index(
-            name, slots.shape[1:], tw.shape[1:])
+        tw_args = (0, 0) if tw is None else mr.twiddle_shifts(
+            name, slots[0].numel(), *mr.twiddle_index(
+                name, slots.shape[1:], tw.shape[1:]))
         out = torch.empty((8,) + slots.shape[1:], dtype=torch.int32,
                           device=device)
         times = launches_ms(renorm_launch(name, tw_args), slots, *extra, out)
@@ -1172,16 +1224,20 @@ def configuration(planar, mxu=False):
 
 def check_small_proofs(device):
     """CUDA planar == CUDA AoS == both with the int8 engine == CPU proof
-    bytes at k=256, for the vbn254fr guest (batch rows only) and for a
-    guest with witness rows (linear and quadratic callback rows: the planar
-    check's linear branch and a second encode per flush)."""
+    bytes at k=256, for the vbn254fr guest (batch rows only), for a guest
+    with witness rows (linear and quadratic callback rows: the planar
+    check's linear branch and a second encode per flush) and for the
+    vbn254fr bit decomposition, whose vector division runs the invmod
+    ladder through K1 on the planar path."""
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.prover import prove
     from ligero_prover_tpu_torch.verifier import verify
     from ligero_prover_tpu_torch.zkp.executor import TorchExecutor
     geo = RowGeometry(SMALL_K)
     programs = {"make_wat(4)": wat_program(make_wat(4)),
-                "ecdsa_p256": wat_program(str(ECDSA[0]), ECDSA[1])}
+                "ecdsa_p256": wat_program(str(ECDSA[0]), ECDSA[1]),
+                "bit_decompose": wat_program(str(BIT_DECOMPOSE))}
     os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
     try:
         for name, prog in programs.items():
@@ -1196,10 +1252,18 @@ def check_small_proofs(device):
                     ex = TorchExecutor(geo.k, geo.n, 8, dev)
                 require(ex.use_planar is bool(planar) and ex.use_mxu is mxu,
                         f"{label} executor")
+                k1 = fm.LAUNCHES["mont_mul"]
                 res = prove(prog, geometry=geo, executor=ex,
                             encoding_seed=bytes(range(32)))
                 require(res.ok, f"k={SMALL_K} {name} self-check, {label}")
                 proofs[label] = (res.proof, ex)
+                if label == "cuda planar":
+                    k1 = fm.LAUNCHES["mont_mul"] - k1
+                    log(f"phase 4: k={SMALL_K} {name} on the planar path: "
+                        f"{k1} mont_mul (K1) launches")
+                    require(name != "bit_decompose" or k1 >= 383,
+                            "bit_decompose's division runs the invmod "
+                            "ladder through K1")
             same = len({p for p, _ in proofs.values()}) == 1
             log(f"phase 4: k={SMALL_K} {name} proof bytes "
                 f"{' == '.join(proofs)}: {same} "

@@ -368,6 +368,25 @@ LIGERO_HD void cc_row(uint32_t e[9], uint32_t o[9], uint32_t f,
              LIGERO_R(y[6])));
 }
 
+// The even half of t += m*p (the products of p's even limbs, positions
+// 0..8; the carry goes on to o[8]), then the shift down one word: f is
+// the word that lands at position 0 outside e.
+LIGERO_HD void cc_even_shift(uint32_t e[9], uint32_t o[9], uint32_t m,
+                             uint32_t& f) {
+  LIGERO_CC(LIGERO_EVEN_CHAIN(LIGERO_P0, LIGERO_P2, LIGERO_P4, LIGERO_P6),
+            LIGERO_E9(e, o), (LIGERO_R(m)));
+  // e[0] is now 0 (t + m*p = 0 mod 2^32)
+  f = e[1];
+  uint32_t t[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) t[k] = e[k + 2];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) e[k] = o[k];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) o[k] = t[k];
+  o[7] = o[8] = 0u;
+}
+
 // t += m*p with m = t[0]*J0, then the shift down one word: f is the word
 // that lands at position 0 outside e.
 LIGERO_HD void cc_reduce(uint32_t e[9], uint32_t o[9], uint32_t& f) {
@@ -385,40 +404,35 @@ LIGERO_HD void cc_reduce(uint32_t e[9], uint32_t o[9], uint32_t& f) {
              LIGERO_W(o[4]), LIGERO_W(o[5]), LIGERO_W(o[6]), LIGERO_W(o[7]),
              LIGERO_W(o[8])),
             (LIGERO_R(m)));
-  LIGERO_CC(LIGERO_EVEN_CHAIN(LIGERO_P0, LIGERO_P2, LIGERO_P4, LIGERO_P6),
-            LIGERO_E9(e, o), (LIGERO_R(m)));
-  // e[0] is now 0 (t + m*p = 0 mod 2^32)
-  f = e[1];
-  uint32_t t[7];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) t[k] = e[k + 2];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) e[k] = o[k];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) o[k] = t[k];
-  o[7] = o[8] = 0u;
+  cc_even_shift(e, o, m, f);
 }
 
-LIGERO_HD void mont_mul_cc(const uint32_t x[8], const uint32_t y[8],
-                           uint32_t out[8]) {
-  uint32_t e[9], o[9], f = 0u;
-  // row 0 into empty arrays: plain products, no carries
-#pragma unroll
-  for (int j = 0; j < 8; j += 2) {
-    const uint64_t pe = (uint64_t)y[j] * x[0], po = (uint64_t)y[j + 1] * x[0];
-    e[j] = (uint32_t)pe;
-    e[j + 1] = (uint32_t)(pe >> 32);
-    o[j] = (uint32_t)po;
-    o[j + 1] = (uint32_t)(po >> 32);
-  }
-  e[8] = o[8] = 0u;
-  cc_reduce(e, o, f);
-#pragma unroll
-  for (int i = 1; i < 8; ++i) {
-    cc_row(e, o, f, y, x[i]);
-    cc_reduce(e, o, f);
-  }
-  // t mod 2^256 = e + f + o at positions 0..7; the carry out is dropped
+// cc_reduce with f, the word at position 0 outside e, still to add: the
+// odd chain first adds f into e[0] and carries into position 1, where its
+// products start (m is taken from e[0] + f mod 2^32).
+LIGERO_HD void cc_reduce_folding(uint32_t e[9], uint32_t o[9], uint32_t& f) {
+  const uint32_t m = (e[0] + f) * kJ0;
+  LIGERO_CC("add.cc.u32 %0, %0, %11;\n\t"
+            "madc.lo.cc.u32 %1, %10, " LIGERO_P1 ", %1;\n\t"
+            "madc.hi.cc.u32 %2, %10, " LIGERO_P1 ", %2;\n\t"
+            "madc.lo.cc.u32 %3, %10, " LIGERO_P3 ", %3;\n\t"
+            "madc.hi.cc.u32 %4, %10, " LIGERO_P3 ", %4;\n\t"
+            "madc.lo.cc.u32 %5, %10, " LIGERO_P5 ", %5;\n\t"
+            "madc.hi.cc.u32 %6, %10, " LIGERO_P5 ", %6;\n\t"
+            "madc.lo.cc.u32 %7, %10, " LIGERO_P7 ", %7;\n\t"
+            "madc.hi.cc.u32 %8, %10, " LIGERO_P7 ", %8;\n\t"
+            "addc.u32 %9, %9, 0;",
+            (LIGERO_W(e[0]), LIGERO_W(o[0]), LIGERO_W(o[1]), LIGERO_W(o[2]),
+             LIGERO_W(o[3]), LIGERO_W(o[4]), LIGERO_W(o[5]), LIGERO_W(o[6]),
+             LIGERO_W(o[7]), LIGERO_W(o[8])),
+            (LIGERO_R(m), LIGERO_R(f)));
+  cc_even_shift(e, o, m, f);
+}
+
+// t mod 2^256 = e + f + o at positions 0..7 (the carry out is dropped),
+// then out = t - p if t >= p else t.
+LIGERO_HD void cc_finish(uint32_t e[9], const uint32_t o[9], uint32_t f,
+                         uint32_t out[8]) {
   LIGERO_CC("add.cc.u32 %0, %0, %8;\n\t"
             "addc.cc.u32 %1, %1, %9;\n\t"
             "addc.cc.u32 %2, %2, %10;\n\t"
@@ -451,6 +465,28 @@ LIGERO_HD void mont_mul_cc(const uint32_t x[8], const uint32_t y[8],
   for (int l = 0; l < 8; ++l) out[l] = bw ? e[l] : d[l];
 }
 
+LIGERO_HD void mont_mul_cc(const uint32_t x[8], const uint32_t y[8],
+                           uint32_t out[8]) {
+  uint32_t e[9], o[9], f = 0u;
+  // row 0 into empty arrays: plain products, no carries
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const uint64_t pe = (uint64_t)y[j] * x[0], po = (uint64_t)y[j + 1] * x[0];
+    e[j] = (uint32_t)pe;
+    e[j + 1] = (uint32_t)(pe >> 32);
+    o[j] = (uint32_t)po;
+    o[j + 1] = (uint32_t)(po >> 32);
+  }
+  e[8] = o[8] = 0u;
+  cc_reduce(e, o, f);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    cc_row(e, o, f, y, x[i]);
+    cc_reduce(e, o, f);
+  }
+  cc_finish(e, o, f, out);
+}
+
 // x*y mod p: mont_mul_cc(mont_mul_cc(x, y), R^2 mod p).
 LIGERO_HD void mulmod_cc(const uint32_t x[8], const uint32_t y[8],
                          uint32_t out[8]) {
@@ -459,6 +495,32 @@ LIGERO_HD void mulmod_cc(const uint32_t x[8], const uint32_t y[8],
   uint32_t t[8];
   mont_mul_cc(x, y, t);
   mont_mul_cc(t, r2, out);
+}
+
+// redc_cc(u) equals redc(u) on every 512-bit U: the reduction rows of
+// mont_mul_cc over U itself.  U_lo starts in e; each row takes m_i from
+// position 0, adds m_i*p and shifts, so m = sum m_i 2^(32i) is the
+// reference's U_lo*J mod 2^256, and after 8 rows t = (U + m*p) / 2^256,
+// which is U_hi + (m*p)_hi + [U_lo != 0] (U_lo + (m*p)_lo is 0 or
+// 2^256).  U_hi enters the window word by word where the shift frees
+// position 8: U[8] before the first row (e[8]), U[9 + i] after row i
+// (o[7]); a word never changes the m_i of a row below it.  Between rows t
+// < 2^288 + p, inside a row below 2^289: the ten positions hold it.  As in
+// the reference t is kept mod 2^256, then p is subtracted once if t >= p.
+LIGERO_HD void redc_cc(const uint32_t u[16], uint32_t out[8]) {
+  uint32_t e[9], o[9], f = 0u;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    e[k] = u[k];
+    o[k] = 0u;
+  }
+  cc_reduce(e, o, f);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    o[7] = u[8 + i];
+    cc_reduce_folding(e, o, f);
+  }
+  cc_finish(e, o, f, out);
 }
 
 }  // namespace ligero_fm

@@ -51,9 +51,9 @@ SIGNATURES = {
     # out (8, T+P, n), stream: the quadratic test's terms
     "ligero_planar_quad_terms": (_P, _I64, _I64, _I64, _P, _I64, _P, _I64,
                                  _P, _P),
-    # slots (64, X), tw, tw_limb_stride, tw_bc, tw_c (element i reads
-    # tw[:, (i // tw_bc) * tw_c + i % tw_c]; mode 1 only), out (8, X), X,
-    # mode (0 final, 1 mid, 2 pack), stream
+    # slots (64, X), tw, tw_limb_stride, tw_lbc, tw_lc (element i reads
+    # tw[:, (i >> tw_lbc) << tw_lc | i & (2^tw_lc - 1)]; mode 1 only),
+    # out (8, X), X, mode (0 final, 1 mid, 2 pack), stream
     "ligero_renorm": (_P, _P, _I64, _I64, _I64, _P, _I64, _I32, _P),
     # x (8, X), out (8, X), X, stream
     "ligero_digitize": (_P, _P, _I64, _P),

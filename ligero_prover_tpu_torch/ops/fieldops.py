@@ -131,18 +131,19 @@ def mulmod(x, y):
 _PM2_BITS = [(F.MODULUS - 2) >> i & 1 for i in range(F.NUM_BITS)]
 
 
-def invmod(x):
+def invmod(x, mul=mont_mul):
     """Fermat inverse x^(p-2): the reference's 254-step Montgomery
     square-and-multiply ladder, with the exponent's bits known on the host
-    (so a zero bit skips the multiply instead of selecting it away).
+    (so a zero bit skips the multiply instead of selecting it away), on
+    the Montgomery product `mul` (K1; a check passes its plain version).
     invmod(0) = 0."""
     r2 = to_torch(R2_LIMBS, x.device)
-    xm = mont_mul(x, r2)                                   # x*R
+    xm = mul(x, r2)                                        # x*R
     acc = to_torch(R_MONT_LIMBS, x.device).expand(x.shape).contiguous()
     for i in range(F.NUM_BITS):
-        acc = mont_mul(acc, acc)
+        acc = mul(acc, acc)
         if _PM2_BITS[F.NUM_BITS - 1 - i]:
-            acc = mont_mul(acc, xm)
+            acc = mul(acc, xm)
     one = torch.zeros_like(x)
     one[..., 0] = 1
-    return mont_mul(acc, one)                              # leave Montgomery
+    return mul(acc, one)                                   # leave Montgomery

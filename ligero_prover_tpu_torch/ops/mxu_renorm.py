@@ -29,7 +29,9 @@ Montgomery form; ``digitize`` the digits of given canonical limbs.
 Shapes: slots (64, ...) int32, limbs and digits (8, ...) int32 bit patterns.
 ``renorm_mid`` takes the twiddle either at the slots' trailing shape or
 unbroadcast, (8, S, 1, C) against slots (64, S, B, C): the kernel reads the
-table by index and no (8, S, B, C) copy is made.
+table by index (with shifts: on a CUDA tensor B and C must be powers of
+two, as every call of the engine has them) and no (8, S, B, C) copy is
+made.
 """
 
 from __future__ import annotations
@@ -164,20 +166,36 @@ def twiddle_index(name: str, slot_shape, tw_shape) -> tuple[int, int]:
                      f"against (64, S, B, C)")
 
 
+def twiddle_shifts(name: str, x: int, tw_bc: int, tw_c: int) -> tuple[int, int]:
+    """(lbc, lc) for the kernel's index (i >> lbc) << lc | i & (2^lc - 1),
+    equal to :func:`twiddle_index`'s (i // tw_bc) * tw_c + i % tw_c for
+    every element i < x: the log2 of tw_bc and tw_c, which must be powers
+    of two unless they are equal (the index is then i)."""
+    if tw_bc == tw_c:
+        bits = max(x - 1, 0).bit_length()
+        return bits, bits
+    if tw_bc & (tw_bc - 1) or tw_c & (tw_c - 1):
+        raise ValueError(f"{name}: the kernel reads the twiddle table with "
+                         f"shifts; B*C = {tw_bc} and C = {tw_c} must be "
+                         f"powers of two")
+    return tw_bc.bit_length() - 1, tw_c.bit_length() - 1
+
+
 def _renorm(name: str, slots: torch.Tensor, tw: torch.Tensor | None):
     _check(name, slots, SLOTS)
     slots = slots.contiguous()
     x = slots[0].numel()
-    tw_ptr, tw_ls, tw_bc, tw_c = None, 0, 1, 1
+    tw_ptr, tw_ls, tw_lbc, tw_lc = None, 0, 0, 0
     if tw is not None:
         _check(name, tw, NLIMB, slots.device)
-        tw_bc, tw_c = twiddle_index(name, slots.shape[1:], tw.shape[1:])
+        tw_lbc, tw_lc = twiddle_shifts(
+            name, x, *twiddle_index(name, slots.shape[1:], tw.shape[1:]))
         tw = tw.contiguous()
         tw_ptr, tw_ls = tw.data_ptr(), max(tw[0].numel(), 1)
     out = torch.empty((NLIMB,) + slots.shape[1:], dtype=torch.int32,
                       device=slots.device)
     rc = kernels.lib().ligero_renorm(
-        slots.data_ptr(), tw_ptr, tw_ls, tw_bc, tw_c, out.data_ptr(), x,
+        slots.data_ptr(), tw_ptr, tw_ls, tw_lbc, tw_lc, out.data_ptr(), x,
         RENORM_MODE[name], kernels.stream_handle(slots.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1

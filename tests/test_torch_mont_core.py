@@ -7,10 +7,11 @@ of the reference's limb algorithm (``field/bn254.py`` constants), on the
 edge values in all pairs, on carry-heavy limb patterns, on random
 non-canonical pairs and on pairs whose Montgomery sum
 t = (U + m*p) / 2^256 reaches 2^256, where the reference drops the carry
-out of limb 7.  Then the element functions of K2
-(``mulmod_at`` in ``csrc/fieldmul.cu``, with its broadcast index math) and
-of KE mont_scalar (``mont_scalar_at`` in ``csrc/planar.cu``) against the
-plain PyTorch versions ``fm.mulmod_plain`` and
+out of limb 7.  Then the element functions of K1 and K2
+(``mont_mul_at`` and ``mulmod_at`` in ``csrc/fieldmul.cu``, with their
+broadcast index math; K1 with its 32-bit and its 64-bit index) and of KE
+mont_scalar (``mont_scalar_at`` in ``csrc/planar.cu``) against the plain
+PyTorch versions ``fm.mont_mul_plain``, ``fm.mulmod_plain`` and
 ``fm.mont_mul_scalar_planar_plain``.  The sources are compiled with g++;
 the tests skip where it is absent.  Exact: tolerance 0.
 
@@ -53,6 +54,23 @@ extern "C" void product(const uint32_t* x, const uint32_t* y, uint32_t* out,
     else if (which == 2) mulmod(a, b, r);
     else mulmod_cc(a, b, r);
   }
+}
+
+// K1 as its kernel runs it: element i on thread i, with the 32-bit index
+// or (wide) the 64-bit one
+extern "C" void k1(const uint32_t* x, const uint32_t* y, uint32_t* out,
+                   uint32_t n, uint32_t y_rows, int wide) {
+  for (uint32_t i = 0; i < n; ++i) {
+    if (wide)
+      mont_mul_at<unsigned long long>(x, y, out, n, y_rows, i);
+    else
+      mont_mul_at<uint32_t>(x, y, out, n, y_rows, i);
+  }
+}
+
+// the row of y that each element i < n of K1 reads
+extern "C" void k1_rows(uint32_t n, uint32_t y_rows, uint32_t* rows) {
+  for (uint32_t i = 0; i < n; ++i) rows[i] = mont_mul_row(n, y_rows, i);
 }
 
 // K2 as its kernel runs it: element i on thread i
@@ -147,6 +165,8 @@ def _build(tmp_path_factory, name, defines):
     lib = ctypes.CDLL(str(so))
     ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
     lib.product.argtypes = [ptr, ptr, ptr, i32, i32]
+    lib.k1.argtypes = [ptr, ptr, ptr, u32, u32, i32]
+    lib.k1_rows.argtypes = [u32, u32, ptr]
     lib.k2.argtypes = [ptr, ptr, ptr, u32, u32]
     lib.k2_threads.argtypes = [u32]
     lib.k2_threads.restype = u32
@@ -269,6 +289,35 @@ def test_carry_chain_product_is_bit_identical(core, name, pairs):
                            "random": 10_000}[pairs]
 
 
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("pairs", list(PAIR_SETS))
+def test_k1_element_function_is_bit_identical(core, pairs, wide):
+    """K1's mont_mul_at (element i reads y[i], y_rows = n) with either
+    index width over the edge, pattern, random and overflow pairs, against
+    mont_mul_cc and the Python-int model of the reference."""
+    xs, ys = PAIR_SETS[pairs]()
+    x, y = ints_to_limbs(xs), ints_to_limbs(ys)
+    out = np.zeros_like(x)
+    core.k1(x.ctypes.data, y.ctypes.data, out.ctypes.data, len(xs), len(xs),
+            int(wide))
+    got = limbs_to_ints(out)
+    assert got == run_product(core, "mont_mul_cc", xs, ys)
+    assert got == [model_mont(a, b) for a, b in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("n", [1, 7, 96, 3072, 16384])
+def test_k1_row_is_i_mod_y_rows(core, n):
+    """mont_mul_row equals i % y_rows for every element and every row
+    count a caller can pass (1 to n, powers of two and others; _tiled's h
+    for the AoS scans' twiddles is a power of two, the arena's 1 or n)."""
+    counts = {1, 2, 3, 5, 64, 96, 4096, 12288, 16384, n, max(n - 1, 1)}
+    i = np.arange(n, dtype=np.uint32)
+    for y_rows in sorted(c for c in counts if c <= n):
+        rows = np.zeros(n, dtype=np.uint32)
+        core.k1_rows(n, y_rows, rows.ctypes.data)
+        np.testing.assert_array_equal(rows, i % y_rows)
+
+
 def _tiled(x, y_rows):
     """(n, 8) rows whose element i uses row i % y_rows, as a broadcast."""
     return x.reshape(-1, y_rows, 8)
@@ -291,12 +340,40 @@ def test_k2_element_function_matches_plain(core, n, y_rows):
     np.testing.assert_array_equal(out, to_np(want).reshape(n, 8))
 
 
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n,y_rows", [(3072, 3072), (8192, 1), (8192, 8192),
+                                      (16 * 1024, 1024), (16 * 1024, 96),
+                                      (3000, 7)])
+def test_k1_element_function_matches_plain(core, n, y_rows, wide):
+    """K1's mont_mul_at over every element, with y read at i (y_rows = n),
+    at 0 (y_rows = 1: mont_mul_const, the ladder's one), at i & (y_rows -
+    1) (a power of two: the AoS twiddles) or at i % y_rows, on
+    non-canonical operands with the edge values, against
+    fm.mont_mul_plain on the broadcast."""
+    gen = np.random.default_rng(n + y_rows)
+    x = rand_limbs(gen, (n,), canonical=False)
+    y = rand_limbs(gen, (y_rows,), canonical=False)
+    x[:len(EDGES)] = ints_to_limbs(EDGES)
+    y[:len(EDGES)] = ints_to_limbs(EDGES[::-1][:y_rows])
+    out = np.zeros_like(x)
+    core.k1(x.ctypes.data, y.ctypes.data, out.ctypes.data, n, y_rows,
+            int(wide))
+    if n % y_rows == 0:
+        want = tfm.mont_mul_plain(_tiled(to_t(x), y_rows), to_t(y))
+    else:
+        want = tfm.mont_mul_plain(to_t(x), to_t(y[np.arange(n) % y_rows]))
+    np.testing.assert_array_equal(out, to_np(want).reshape(n, 8))
+
+
 @pytest.mark.parametrize("n,threads", [(3072, 32), (8192, 32),
-                                       (20000, 128), (16 * 32768, 256)])
+                                       (20000, 128), (16 * 32768, 256),
+                                       (1, 32), (16 * 4096, 256),
+                                       (16 * 16384, 256)])
 def test_k2_block_size_spreads_small_calls(core, n, threads):
     """256-thread blocks where they give each of the 132 SMs one, smaller
-    blocks down to one warp below that; chip_smoke.py times the launch
-    floor at the same grid."""
+    blocks down to one warp below that (K2's rule, which K1 takes too: its
+    DIT calls of 16 x 4096 and 16 x 16384 elements, the arena's 8192);
+    chip_smoke.py times the launch floor at the same grid."""
     from chip_smoke import k2_grid
     assert core.k2_threads(n) == threads
     assert k2_grid(n) == (-(-n // threads), threads)
