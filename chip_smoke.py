@@ -12,7 +12,10 @@ butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
 rows, the verifier's 192 columns) also at their small calls, beside the
 launch floor of an empty kernel with the same grid; one invmod ladder of
 K1 launches against the plain ladder; KE mont_mul at the check's three
-calls and quad-terms beside the nine launches it replaced), checks that
+calls and quad-terms beside the nine launches it replaced; KR digitize on
+the engine's AoS rows read in place and on planar limbs, and KE
+mulmod_fma with a full-plane and a per-row second operand, each also on
+non-canonical words), checks that
 small proofs made on the GPU in the planar and the AoS configuration, each
 with the butterfly and with the int8 encode engine, are byte-identical to
 the same proofs made on the CPU (the vbn254fr guest, an ECDSA guest with
@@ -98,10 +101,12 @@ SHA_INT_OPS = {"sha256_absorb": 64 * 10 + 48 * 8,
                "sha256_absorb_planar": 64 * 10 + 48 * 8}
 # The signed byte sweep of a renormalisation: 66 steps of an add, a mask,
 # an arithmetic shift and a shift-or into the packed limb (5 operations);
-# the repack to signed digits 32 steps of 5 (extract, add, compare, fix,
-# insert).  All integer-pipe operations, at INT_PER_CLK.
-SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + 32 * 5,
-             "renorm_mid": 66 * 5 + 32 * 5, "digitize": 32 * 5}
+# the repack to signed digits one 256-bit add of 0x80 in every byte and a
+# XOR of each word (8 + 8 operations: csrc/renorm.cu, canonical_to_packed).
+# All integer-pipe operations, at INT_PER_CLK.
+REPACK_OPS = 8 + 8
+SWEEP_OPS = {"renorm_final": 66 * 5, "renorm_pack": 66 * 5 + REPACK_OPS,
+             "renorm_mid": 66 * 5 + REPACK_OPS, "digitize": REPACK_OPS}
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 # mangled name fragment of each kernel's device function
 SASS_NAME = {
@@ -116,18 +121,27 @@ SASS_NAME = {
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
-    # KE mont_mul: the per-row scalar form (the check's calls) and the
-    # full-plane form (the linear test); mulmod: the full-plane form; all
-    # in 16-byte units of 4 elements (SASS_ELEMENTS)
-    "mont_mul_planar": "run_product_kernelILb0ELb1ELb1EE",
-    "mont_mul_planar_full": "run_product_kernelILb0ELb0ELb1EE",
-    "mulmod_planar": "run_product_kernelILb1ELb0ELb1EE",
+    # KE mont_mul (mode 2): the per-row scalar form (the check's calls)
+    # and the full-plane form (the linear test); mulmod (3): the full-plane
+    # form; all in 16-byte units of 4 elements (SASS_ELEMENTS); mulmod_fma
+    # (5): the full-plane and the per-row form, in single elements
+    "mont_mul_planar": "run_product_kernelILi2ELb1ELb1EE",
+    "mont_mul_planar_full": "run_product_kernelILi2ELb0ELb1EE",
+    "mulmod_planar": "run_product_kernelILi3ELb0ELb1EE",
     "quad_terms_planar": "quad_terms_kernelILb1EE",
     "mont_mul_scalar_planar": "mont_scalar_kernel",
-    "mulmod_fma_planar": "eltwise_kernelILi5E",
+    "mulmod_fma_planar": "run_product_kernelILi5ELb0ELb0EE",
+    "mulmod_fma_planar_row": "run_product_kernelILi5ELb1ELb0EE",
     "renorm_final": "renorm_kernelILi0E", "renorm_mid": "renorm_kernelILi1E",
-    "renorm_pack": "renorm_kernelILi2E", "digitize": "digitize_kernel",
+    "renorm_pack": "renorm_kernelILi2E",
+    # digitize on the engine's AoS rows viewed as planes (16-byte loads),
+    # and word by word on planar input
+    "digitize": "digitize_kernelILb1E",
+    "digitize_planar": "digitize_kernelILb0E",
 }
+# digitize's threads a CTA, one element each (kDigitThreads of
+# csrc/renorm.cu)
+DIGIT_THREADS = 256
 # elements whose code one pass of the kernel's body holds (its SASS count
 # over this is per element); 1 where not listed
 SASS_ELEMENTS = {"mont_mul_planar": 4, "mont_mul_planar_full": 4,
@@ -321,6 +335,15 @@ def k2_grid(n: int) -> tuple[int, int]:
 RUN_THREADS, RUN_UNITS = 128, 2    # csrc/planar.cu kRunThreads, kRunUnits
 
 
+def run_vec(n, x_ls, x16, out16, row, y_div, y_ls, y16) -> bool:
+    """Whether KE mont_mul or mulmod moves 16-byte units, as ``run_vec``
+    in csrc/planar.cu decides from the limb strides, the run length and
+    whether the pointers sit at 16-byte boundaries (mulmod_fma always
+    moves single elements)."""
+    return (n % 4 == 0 and x_ls % 4 == 0 and bool(x16) and bool(out16)
+            and (y_div % 4 == 0 if row else y_ls % 4 == 0 and bool(y16)))
+
+
 def run_grid(n: int, length: int, vec: bool) -> tuple[int, int]:
     """(blocks, threads) of KE mont_mul, mulmod and quad-terms over n
     output elements in runs of `length` (a row), 4-element units if
@@ -381,6 +404,17 @@ def edge_limbs(device, reverse=False):
         edges = edges[::-1]
     return torch.from_numpy(np.ascontiguousarray(edges).view(np.int32)
                             .copy()).to(device)
+
+
+def digit_edges(device):
+    """(4, 8) words whose signed recoding carries through every byte or
+    none: 2^256 - 1 and every byte 0x7F, 0x80 or 0x81."""
+    import numpy as np
+    import torch
+    from ligero_prover_tpu_torch.field.limbs import ints_to_limbs
+    words = [(1 << 256) - 1] + [int(b * 32, 16) for b in ("7f", "80", "81")]
+    return torch.from_numpy(np.ascontiguousarray(ints_to_limbs(words))
+                            .view(np.int32).copy()).to(device)
 
 
 def report(results, name, label, err, times, plain_ms, bnd, floor=None):
@@ -574,7 +608,7 @@ def check_aos_kernels(device, gen, lib, stream, results):
 
 
 def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
-    """KE add, sub, mont_scalar and mulmod_fma (mont_mul, mulmod and
+    """KE add, sub and mont_scalar (mont_mul, mulmod, mulmod_fma and
     quad-terms: ``check_ke_runs``) and K3 on planar rows, at the calls of
     the planar path: n = 4k, 16 rows per flush."""
     import torch
@@ -587,7 +621,7 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
         return random_limbs(gen, shape, device, canonical) \
             .movedim(-1, 0).contiguous()
 
-    # KE add, sub and mont_scalar (mont_mul and mulmod: check_ke_runs),
+    # KE add, sub and mont_scalar (the products: check_ke_runs),
     # timed at the call the main path makes in each mode:
     #   addmod   the tree sum's first fold: the two (8, 8, n) halves of
     #            (8, 16, n) products, read in place at limb stride 16n
@@ -661,24 +695,6 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
             require(err == 0, f"{name} at (8, {bsz}) equals its plain "
                     "version")
 
-    # KE mulmod_fma: acc + x*y on full (8, 16, n) operands; no caller on
-    # any path, so this is its only launch
-    acc = planes((bsz, n))
-    zw = planes((65536,), False)
-    err = compare_cases(fm.mulmod_fma_planar, fm.mulmod_fma_planar_plain,
-                        [(acc, rows, full), (zw, xw, yw)])
-    size = bsz * n
-    report(results, fm.FMA, f"(8,{bsz},{n}) + (8,{bsz},{n}) x same, and "
-           "(8,65536) non-canonical", err,
-           launches_ms(lambda xa, ya, za, out: kernels.check(
-               lib.ligero_planar_eltwise(
-                   xa.data_ptr(), size, ya.data_ptr(), size, 1,
-                   za.data_ptr(), size, out.data_ptr(), size, fm.FMA_MODE,
-                   stream), fm.FMA),
-               rows, full, acc, torch.empty_like(rows)),
-           cuda_ms(lambda: fm.mulmod_fma_planar_plain(acc, rows, full), 3),
-           bound(fm.FMA, 128 * size, size))
-
     # K3 on planar rows: the same two flushes as the AoS check, read as
     # (8, 16, n) codeword planes
     cols = n
@@ -709,12 +725,6 @@ def check_planar_kernels(device, gen, lib, stream, results, k=FULL_K):
                  bsz // 2))
 
 
-def _vec16(*ptr_strides) -> bool:
-    """Whether each (data pointer, limb stride) pair allows 16-byte units
-    (the vec test of csrc/planar.cu; the caller adds the run length)."""
-    return all(ptr % 16 == 0 and ls % 4 == 0 for ptr, ls in ptr_strides)
-
-
 def _run_log(name, label, err, times, floor, bnd, extra=""):
     regs = CARD.get("ptxas", {}).get(name, ("not built here",))[0]
     sass = CARD["sass"][name][2] / SASS_ELEMENTS.get(name, 1)
@@ -727,11 +737,12 @@ def _run_log(name, label, err, times, floor, bnd, extra=""):
 def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     """KE mont_mul and mulmod (carry-chain products, one row per CTA run,
     16-byte units) and quad-terms at the calls of the planar check step
-    (n = 4k, 16 rows per flush, T = P = 16 after padding to the batch):
-    checked against the plain versions on canonical operands, on
-    non-canonical ones with the edge values, and with one scalar for all;
-    timed L2-cold and L2-hot beside the launch floor at their grid and the
-    bound."""
+    (n = 4k, 16 rows per flush, T = P = 16 after padding to the batch),
+    and mulmod_fma on the same geometry at (8, 16, n) in its full-plane
+    and per-row forms: checked against the plain versions on canonical
+    operands, on non-canonical ones with the edge values, and with one
+    scalar for all; timed L2-cold and L2-hot beside the launch floor at
+    their grid and the bound."""
     import numpy as np
     import torch
     from ligero_prover_tpu_torch import kernels
@@ -743,24 +754,29 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
         return random_limbs(gen, shape, device, canonical) \
             .movedim(-1, 0).contiguous()
 
-    def ke_ms(name, x, y):
-        """(cold, hot) ms of one ligero_planar_eltwise launch on (x, y),
-        the bytes it must move, the launch floor at its grid and the
-        elements it computes."""
+    def ke_ms(name, x, y, z=None):
+        """(cold, hot) ms of one ligero_planar_eltwise launch on (x, y)
+        and, for mulmod_fma, the addend z (x's shape, contiguous), the
+        bytes it must move, the launch floor at its grid and the elements
+        it computes."""
         xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
-        mode = fm.PLANAR_MODE[name]
+        mode = fm.PLANAR_MODE.get(name, fm.FMA_MODE)
         out = torch.empty((8, size), dtype=torch.int32, device=device)
-        times = launches_ms(lambda xa, ya, out: kernels.check(
-            lib.ligero_planar_eltwise(
-                xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div, None, 0,
-                out.data_ptr(), size, mode, stream), name), xa, ya, out)
+
+        def launch(xa, ya, out, *za):
+            kernels.check(lib.ligero_planar_eltwise(
+                xa.data_ptr(), x_ls, ya.data_ptr(), y_ls, y_div,
+                za[0].data_ptr() if za else None, size if za else 0,
+                out.data_ptr(), size, mode, stream), name)
+        times = launches_ms(launch, xa, ya, out,
+                            *(() if z is None else (z,)))
         row = y_div > 1
-        vec = size % 4 == 0 and _vec16((xa.data_ptr(), x_ls),
-                                       (out.data_ptr(), 4)) and \
-            (y_div % 4 == 0 if row else _vec16((ya.data_ptr(), y_ls)))
+        vec = z is None and run_vec(size, x_ls, xa.data_ptr() % 16 == 0,
+                                    out.data_ptr() % 16 == 0, row, y_div,
+                                    y_ls, ya.data_ptr() % 16 == 0)
         grid = run_grid(size, y_div if row else size, vec)
-        # x read, out written, each y element read once
-        return times, 64 * size + 4 * ya.numel(), \
+        # x (and z) read, out written, each y element read once
+        return times, (64 if z is None else 96) * size + 4 * ya.numel(), \
             floor_ms(lib, stream, *grid), size
 
     # non-canonical operands with the edge values: rows, per-row scalars
@@ -805,6 +821,32 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     report(results, "mulmod_planar", "(8,16,n) x same, per-row scalars, "
            "non-canonical", err, times,
            cuda_ms(lambda: fm.mulmod_planar_plain(x, y), 3), bnd, floor)
+
+    # mulmod_fma (mode 5, no caller on any path of either package): z +
+    # x*y with y a full plane and a per-row scalar, on canonical operands
+    # and on non-canonical ones with the edge values (z too)
+    x, y = full
+    acc = planes((bsz, n))
+    zw = planes((bsz, n), False)
+    zw[:, 0, :6] = edge_limbs(device, reverse=True).T
+    err = compare_cases(fm.mulmod_fma_planar, fm.mulmod_fma_planar_plain,
+                        [(acc, x, y), (acc, *code), (zw, xw, yw),
+                         (zw, xw, sw), (zw, xw, sw[:, 5:6])])
+    for label, (x, y), sass_name in (
+            ("(8,16,n) + (8,16,n) x same", full, fm.FMA),
+            ("(8,16,n) + (8,16,n) x (8,16,1)", code, fm.FMA + "_row")):
+        times, nbytes, floor, size = ke_ms(fm.FMA, x, y, acc)
+        bnd = bound(fm.FMA, nbytes, size)
+        _run_log(sass_name, label, err, times, floor, bnd)
+        CARD.setdefault("ke_fma", {})[label] = {
+            "ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+        if sass_name == fm.FMA:
+            report(results, fm.FMA, label + ", per-row scalars, "
+                   "non-canonical", err, times,
+                   cuda_ms(lambda: fm.mulmod_fma_planar_plain(acc, x, y), 3),
+                   bnd, floor)
+    require(err == 0, "mulmod_fma equals its plain version")
 
     # quad-terms at the check's call: e (8, 16, n), 16 triples and 16
     # pairs of random row indices (repeats among them), then the same
@@ -1102,18 +1144,40 @@ def check_mxu_kernels(device, gen, lib, stream, results, k=FULL_K):
         plain_ms = cuda_ms(lambda: plain(slots, *extra), 3)
         return err, times, plain_ms, bound(name, nbytes, slots[0].numel())
 
+    # digitize at the engine's call: the (16, k, 8) AoS rows read in place
+    # as (8, 16, k) planes; also on a planar copy of them, and on
+    # non-canonical words (2^256 - 1, every byte 0x7F, 0x80 or 0x81) in
+    # both layouts
     rows = random_limbs(gen, (bsz, k), device, True)
-    x = rows.movedim(-1, 0).contiguous()                   # (8, 16, k)
-    edge = edge_limbs(device)[:4].T                        # 0, 1, p-1, R
-    x[:, 0, :4] = edge
-    err = compare_cases(mr.digitize, mr.digitize_plain, [(x,)])
-    report(results, "digitize", f"(8,{bsz}*{k}) canonical with edge values",
-           err,
-           launches_ms(lambda a, out: kernels.check(lib.ligero_digitize(
-               a.data_ptr(), out.data_ptr(), a[0].numel(), stream),
-               "digitize"), x, torch.empty_like(x)),
-           cuda_ms(lambda: mr.digitize_plain(x), 3),
-           bound("digitize", 64 * bsz * k, bsz * k))
+    rows[0, :4] = edge_limbs(device)[:4]                   # 0, 1, p-1, R
+    view = rows.movedim(-1, 0)
+    require(mr.digitize_args(view)[0] is view,
+            "digitize reads the engine's AoS rows in place")
+    x = view.contiguous()                                  # (8, 16, k)
+    wild = random_limbs(gen, (bsz, k), device, False)
+    wild[0, :4] = digit_edges(device)
+    err = compare_cases(mr.digitize, mr.digitize_plain,
+                        [(view,), (x,), (wild.movedim(-1, 0),),
+                         (wild.movedim(-1, 0).contiguous(),)])
+    size = bsz * k
+    bnd = bound("digitize", 64 * size, size)
+    for name, label, operand, strides in (
+            ("digitize_planar", f"(8,{bsz},{k}) planar", x, (size, 1)),
+            ("digitize", f"(16,{k},8) AoS rows viewed as (8,{bsz},{k})",
+             rows, (1, 8))):
+        times = launches_ms(lambda a, out, st=strides: kernels.check(
+            lib.ligero_digitize(a.data_ptr(), *st, out.data_ptr(), size,
+                                stream), "digitize"),
+            operand, torch.empty_like(x))
+        floor = floor_ms(lib, stream, -(-size // DIGIT_THREADS),
+                         DIGIT_THREADS)
+        _run_log(name, label + ", canonical and non-canonical", err, times,
+                 floor, bnd)
+        CARD[name] = {"ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+                      "bound_ms": bnd[0]}
+    report(results, "digitize", f"(16,{k},8) AoS rows viewed as planes, "
+           "planar copy, non-canonical words", err, times,
+           cuda_ms(lambda: mr.digitize_plain(view), 3), bnd, floor)
 
     xp = mr.digitize(x).view(8, bsz, r1, c1)
     # level 1: (64, r1*16*c1) slots, tw1 (8, r1, 1, c1) read by index

@@ -49,7 +49,7 @@
 // KE replaces _k_addmod, _k_submod, _k_mont_scalar and _k_mulmod_fma
 // (fieldmul.py:252,256,269,278) and gives _k_mont_mul/_k_mulmod (:260,264)
 // their planar entry.  mulmod_fma adds the product to a third operand z,
-// a full plane read at element i.
+// a full plane read as x is.
 // The second operand y is either a full plane (y_div = 1) or a value per
 // run of y_div consecutive elements (a per-row scalar over (8, B, n) rows
 // has y_div = n).  Mode kScalar (mont_scalar) is a kernel of its own: one
@@ -59,7 +59,7 @@
 // small part of its time, the launch and its loads and stores the rest
 // (PERF.md); its other calls (the check's prescales of 16 and T+P
 // elements) are bound by the launch.
-// Modes kMont and kMulmod (run_product_kernel) and quad-terms
+// Modes kMont, kMulmod and kFma (run_product_kernel) and quad-terms
 // (quad_terms_kernel, _k_mulmod's planar entry redesigned around the
 // check's one call, which took the terms x*y - z and x - y from rows
 // gathered by index: executor.py:233-250) share one geometry: each CTA
@@ -67,7 +67,9 @@
 // thread into registers and quad-terms picks its form and its three row
 // indices once per CTA; a thread moves 4 consecutive elements of each
 // limb plane as one 16-byte access where the plane and run starts allow,
-// and multiplies with the carry-chain mont_mul_cc/mulmod_cc.  quad-terms
+// and multiplies with the carry-chain mont_mul_cc/mulmod_cc (mulmod_fma:
+// mulmod_cc, then add_mod of z, a full plane read as x is, in single
+// elements: see launch_fma).  quad-terms
 // reads the rows of the encoded batch in place (it fits the 50 MB L2)
 // and writes the (8, T+P, n) terms that the quadratic product reads: one
 // launch where the check made five row gathers, a mulmod, two submods and
@@ -77,7 +79,15 @@
 // ~200 32-bit multiply-adds per 96 bytes moved, so KB and KE's product
 // modes are bound by the integer pipes at the main path's shapes (2^18..
 // 2^19 elements), while KE's add/sub modes (~30 integer ops per 96 bytes)
-// are bound by HBM bandwidth.  A one-stage KB launch moves 64 bytes per
+// are bound by HBM bandwidth.  mulmod_fma at its (8, 16, 32768) shape
+// moves 128 bytes per element for two Montgomery products (328 wide
+// multiply-adds): its bytes' time (0.020 ms) is the larger at the
+// published rates, but the carry chains issue at about a third of the
+// multiply-add rate (PERF.md), so, as KE mulmod on two thirds of its
+// bytes, it runs at the pace of its products, its 32 more bytes of z per
+// element overlapping them; in single elements (2,048 CTAs of about 52
+// registers) the SM holds enough warps to hide both.  A one-stage KB
+// launch moves 64 bytes per
 // butterfly through L2/HBM; a pass of s stages moves them once for s
 // butterflies, so a whole transform (13-15 stages in 3 passes) is bound
 // by the integer instructions of field.cuh's mont_mul, issued at about
@@ -308,13 +318,11 @@ LIGERO_HD void pass_step_at(const uint32_t* cur, uint32_t* nxt,
   }
 }
 
-// Element i of KE in modes add, sub and mulmod_fma: y is read at
-// i / y_div, z in mode kFma only.
+// Element i of KE in modes add and sub: y is read at i / y_div.
 template <int kMode>
 LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
-                          const uint32_t* z, uint32_t z_ls, uint32_t* out,
-                          uint32_t n, uint32_t i) {
+                          uint32_t* out, uint32_t n, uint32_t i) {
   uint32_t a[8], c[8], r[8];
 #pragma unroll
   for (int l = 0; l < 8; ++l) a[l] = x[l * x_ls + i];
@@ -323,15 +331,8 @@ LIGERO_HD void eltwise_at(const uint32_t* x, uint32_t x_ls,
   for (int l = 0; l < 8; ++l) c[l] = y[l * y_ls + yi];
   if (kMode == kAdd)
     add_mod(a, c, r);
-  else if (kMode == kSub)
+  else
     sub_mod(a, c, r);
-  else {
-    uint32_t t[8], acc[8];
-    mulmod(a, c, t);
-#pragma unroll
-    for (int l = 0; l < 8; ++l) acc[l] = z[l * z_ls + i];
-    add_mod(acc, t, r);
-  }
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[l * n + i] = r[l];
 }
@@ -394,6 +395,17 @@ LIGERO_HHD uint32_t run_ctas(const RunGeom& g) {
   return (g.n + g.len - 1u) / g.len * g.chunks;
 }
 
+// Whether a mont_mul or mulmod launch over n elements moves 16-byte
+// units: every plane start (x, out, a full-plane y) and every run start
+// (n, a row's y_div) at a 16-byte boundary; the `aligned` flags say
+// whether the pointers are.
+LIGERO_HHD bool run_vec(uint32_t n, uint32_t x_ls, bool x_aligned,
+                        bool out_aligned, bool row, uint32_t y_div,
+                        uint32_t y_ls, bool y_aligned) {
+  return n % 4u == 0 && x_ls % 4u == 0 && x_aligned && out_aligned &&
+         (row ? y_div % 4u == 0 : y_ls % 4u == 0 && y_aligned);
+}
+
 // V elements (4 or 1) of the 8 limb planes at element offset i.
 template <int V>
 LIGERO_HD void load_planes(const uint32_t* p, uint32_t ls, uint32_t i,
@@ -427,13 +439,16 @@ LIGERO_HD void store_planes(uint32_t* p, uint32_t ls, uint32_t i,
   }
 }
 
-// Thread t of CTA `cta` of KE mont_mul (x*y*2^-256 mod p) or, kIsMulmod,
-// KE mulmod (x*y mod p), by field.cuh's carry-chain products.  kRow: y
-// holds one element per run (a per-row scalar, runs of y_div elements),
-// read once into registers; else y is a full plane, read as x is.
-template <bool kIsMulmod, bool kRow, int V>
+// Thread t of CTA `cta` of KE mont_mul (kMode kMont: x*y*2^-256 mod p),
+// mulmod (kMulmod: x*y mod p) or mulmod_fma (kFma: z + x*y mod p, as the
+// reference's addmod(acc, mulmod(x, y))), by field.cuh's carry-chain
+// products.  kRow: y holds one element per run (a per-row scalar, runs of
+// y_div elements), read once into registers; else y is a full plane, read
+// as x is.  z (kFma only) is a full plane, read as x is after the product.
+template <int kMode, bool kRow, int V>
 LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
                               const uint32_t* y, uint32_t y_ls,
+                              const uint32_t* z, uint32_t z_ls,
                               uint32_t* out, const RunGeom& g, uint32_t cta,
                               uint32_t t) {
   const uint32_t run = cta / g.chunks, c = cta - run * g.chunks;
@@ -452,10 +467,15 @@ LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
     if (!kRow) load_planes<V>(y, y_ls, i, b);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      if (kIsMulmod)
-        mulmod_cc(a[j], kRow ? s : b[j], r[j]);
-      else
+      if (kMode == kMont)
         mont_mul_cc(a[j], kRow ? s : b[j], r[j]);
+      else
+        mulmod_cc(a[j], kRow ? s : b[j], r[j]);
+    }
+    if (kMode == kFma) {
+      load_planes<V>(z, z_ls, i, a);
+#pragma unroll
+      for (int j = 0; j < V; ++j) add_mod(a[j], r[j], r[j]);
     }
     store_planes<V>(out, g.n, i, r);
   }
@@ -540,12 +560,11 @@ template <int kMode>
 __global__ void __launch_bounds__(256)
 eltwise_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
                const uint32_t* __restrict__ y, uint32_t y_ls, uint32_t y_div,
-               const uint32_t* __restrict__ z, uint32_t z_ls,
                uint32_t* __restrict__ out, uint32_t n) {
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, z, z_ls, out, n, i);
+    eltwise_at<kMode>(x, x_ls, y, y_ls, y_div, out, n, i);
 }
 
 // KE mont_scalar: the scalar (limbs at stride s_ls) read once per thread.
@@ -562,13 +581,14 @@ mont_scalar_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
     mont_scalar_at(x, x_ls, s, out, n, i);
 }
 
-template <bool kIsMulmod, bool kRow, bool kVec>
+template <int kMode, bool kRow, bool kVec>
 __global__ void __launch_bounds__(kRunThreads, LIGERO_RUN_MIN_BLOCKS)
 run_product_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
                    const uint32_t* __restrict__ y, uint32_t y_ls,
+                   const uint32_t* __restrict__ z, uint32_t z_ls,
                    uint32_t* __restrict__ out, RunGeom g) {
-  run_product_at<kIsMulmod, kRow, kVec ? 4 : 1>(x, x_ls, y, y_ls, out, g,
-                                              blockIdx.x, threadIdx.x);
+  run_product_at<kMode, kRow, kVec ? 4 : 1>(x, x_ls, y, y_ls, z, z_ls, out,
+                                            g, blockIdx.x, threadIdx.x);
 }
 
 template <bool kVec>
@@ -585,32 +605,51 @@ inline bool aligned16(const void* p) {
   return (unsigned long long)p % 16 == 0;
 }
 
-// KE mont_mul (mulmod false) or mulmod over n elements: y one element per
-// run of y_div > 1 elements (read once per thread), or a full plane.
-// 16-byte accesses where every plane start and run start allows them.
-template <bool kIsMulmod>
+// KE mont_mul or mulmod (kMode) over n elements: y one element per run
+// of y_div > 1 elements (read once per thread), or a full plane.  16-byte
+// accesses where run_vec allows them.
+template <int kMode>
 void launch_product(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
                     uint32_t y_ls, uint32_t y_div, uint32_t* out, uint32_t n,
                     cudaStream_t s) {
   const bool row = y_div > 1u;
-  const bool vec = n % 4u == 0 && x_ls % 4u == 0 && aligned16(x) &&
-                   aligned16(out) &&
-                   (row ? y_div % 4u == 0
-                        : y_ls % 4u == 0 && aligned16(y));
+  const bool vec = run_vec(n, x_ls, aligned16(x), aligned16(out), row,
+                           y_div, y_ls, aligned16(y));
   const RunGeom g = run_geom(n, row ? y_div : n, vec);
   const unsigned grid = run_ctas(g);
   if (row && vec)
-    run_product_kernel<kIsMulmod, true, true>
-        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+    run_product_kernel<kMode, true, true><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, nullptr, 0u, out, g);
   else if (row)
-    run_product_kernel<kIsMulmod, true, false>
-        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+    run_product_kernel<kMode, true, false><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, nullptr, 0u, out, g);
   else if (vec)
-    run_product_kernel<kIsMulmod, false, true>
-        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+    run_product_kernel<kMode, false, true><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, nullptr, 0u, out, g);
   else
-    run_product_kernel<kIsMulmod, false, false>
-        <<<grid, kRunThreads, 0, s>>>(x, x_ls, y, y_ls, out, g);
+    run_product_kernel<kMode, false, false><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, nullptr, 0u, out, g);
+}
+
+// KE mulmod_fma (z + x*y) over n elements on the same geometry, y as in
+// launch_product, z a full plane, in single elements: in 16-byte units
+// its thread takes 136 registers (3 CTAs of 128 on an SM, so the 512 CTAs
+// of its (8, 16, 32768) call run in 1.3 waves), and capped at 128
+// registers it ran 0-6% slower than in single elements
+// (experiment_digitize_fma.py).
+inline void launch_fma(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                       uint32_t y_ls, uint32_t y_div, const uint32_t* z,
+                       uint32_t z_ls, uint32_t* out, uint32_t n,
+                       cudaStream_t s) {
+  const bool row = y_div > 1u;
+  const RunGeom g = run_geom(n, row ? y_div : n, false);
+  const unsigned grid = run_ctas(g);
+  if (row)
+    run_product_kernel<kFma, true, false><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, z, z_ls, out, g);
+  else
+    run_product_kernel<kFma, false, false><<<grid, kRunThreads, 0, s>>>(
+        x, x_ls, y, y_ls, z, z_ls, out, g);
 }
 
 inline unsigned grid_for(unsigned long long work) {
@@ -695,21 +734,22 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
   switch (mode) {
     case ligero_pl::kAdd:
       ligero_pl::eltwise_kernel<ligero_pl::kAdd><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+          xp, xl, yp, yl, yd, op, nn);
       break;
     case ligero_pl::kSub:
       ligero_pl::eltwise_kernel<ligero_pl::kSub><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+          xp, xl, yp, yl, yd, op, nn);
       break;
     case ligero_pl::kMont:
-      ligero_pl::launch_product<false>(xp, xl, yp, yl, yd, op, nn, s);
+      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, op,
+                                                  nn, s);
       break;
     case ligero_pl::kMulmod:
-      ligero_pl::launch_product<true>(xp, xl, yp, yl, yd, op, nn, s);
+      ligero_pl::launch_product<ligero_pl::kMulmod>(xp, xl, yp, yl, yd, op,
+                                                    nn, s);
       break;
     case ligero_pl::kFma:
-      ligero_pl::eltwise_kernel<ligero_pl::kFma><<<grid, 256, 0, s>>>(
-          xp, xl, yp, yl, yd, zp, zl, op, nn);
+      ligero_pl::launch_fma(xp, xl, yp, yl, yd, zp, zl, op, nn, s);
       break;
     default:
       ligero_pl::mont_scalar_kernel<<<grid, 256, 0, s>>>(xp, xl, yp, yl, op,

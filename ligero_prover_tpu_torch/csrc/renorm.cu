@@ -19,10 +19,19 @@
 //      subtract inside it.
 // Contract: 0 <= V < 2^516 and |S_e| < 2^28, which the level products
 // keep (ops/mxu_ntt.py asserts the bound where the tables are built).
-// canonical_to_packed re-emits a canonical value as 32 signed base-256
-// digits (bytes above 127 become byte - 256 with a carry into the next
-// byte; the top byte of a value < p is <= 0x30, so no carry escapes),
-// packed four per word, little-endian: the next level's int8 operand.
+// canonical_to_packed re-emits a value as 32 signed base-256 digits
+// (bytes above 127 become byte - 256 with a carry into the next byte, the
+// carry out of the top byte dropped), packed four per word,
+// little-endian: the next level's int8 operand.  That recoding is one
+// 256-bit addition: with M = 0x80 in every byte,
+//   packed(x) = ((x + M) mod 2^256) XOR M    for every 256-bit x.
+// The recoding's carry into byte j+1 is [b_j + c_j > 127], which is the
+// carry out of b_j + 0x80 + c_j; its digit byte (b_j + c_j - 256 c_{j+1})
+// mod 256 is (b_j + 0x80 + c_j) mod 256 XOR 0x80; both drop the top carry.
+// So it is an add.cc/addc chain of the literal 0x80808080 over the eight
+// limbs and eight XORs: 16 integer instructions for an element, where the
+// byte-serial recoding (each byte's carry waiting on the one before) took
+// about 200.
 //
 //   final:    out = limbs of t
 //   mid:      out = packed(mont_mul_cc(t, tw))   tw in Montgomery form
@@ -31,7 +40,7 @@
 //
 // What bounds them on this card: an element is 256 bytes of slots in and
 // 32 bytes out (plus 32 of twiddle for mid), against ~100 (final, pack)
-// or ~264 (mid) 32x32->64-bit products and ~500 shift/mask operations of
+// or ~264 (mid) 32x32->64-bit products and ~350 shift/mask operations of
 // the sweep and the repack; at the main path's shapes (2^17..2^19
 // elements) the bytes' time is the larger, so they are bound by HBM
 // bandwidth.  Design: one thread per element, everything in registers;
@@ -49,6 +58,18 @@
 // ptxas issues a thread's 64 slot loads first and schedules final and pack
 // in fewer instructions (without it pack ran slower on redc_cc than on
 // redc).  Index math is 32-bit: 64*X < 2^32.
+//
+// digitize moves 64 bytes per element for 16 integer instructions, so it
+// is bound by HBM bandwidth, and at the engine's call (2^17 elements,
+// 8.4 MB) by the launch almost as much.  It reads the engine's AoS rows
+// (B, w, 8) in place as planes (ls = 1, es = 8), so the engine makes no
+// planar copy of them first.  One element a thread, 256 threads a CTA:
+// L2-cold, every form and geometry tried (1, 2 and 4 elements a thread at
+// 128 and 256 threads, planar and on the AoS view) ran within 0.0005 ms
+// of a plain device copy of the same bytes, and 2 or 4 a thread gained at
+// most 0.0001 (experiment_digitize_fma.py).  The AoS view keeps its own
+// form, two 16-byte loads an element: the engine's rows sit in L2, where
+// it takes 0.0030 ms against 0.0036 word by word on the same view.
 
 #include "field.cuh"
 
@@ -100,20 +121,26 @@ LIGERO_HD void slots_to_canonical(const int32_t* s, uint32_t stride,
   redc_cc(u, out);
 }
 
-// Canonical limbs -> 8 words of packed signed base-256 digits.
+// Limbs of a 256-bit value -> 8 words of packed signed base-256 digits:
+// one 256-bit add of M (0x80 in every byte), its carry out dropped, then
+// each word XOR M (the identity in the note at the top).
 LIGERO_HD void canonical_to_packed(const uint32_t limbs[8], uint32_t out[8]) {
-  uint32_t carry = 0;
+  LIGERO_CC("add.cc.u32 %0, %8, 0x80808080;\n\t"
+            "addc.cc.u32 %1, %9, 0x80808080;\n\t"
+            "addc.cc.u32 %2, %10, 0x80808080;\n\t"
+            "addc.cc.u32 %3, %11, 0x80808080;\n\t"
+            "addc.cc.u32 %4, %12, 0x80808080;\n\t"
+            "addc.cc.u32 %5, %13, 0x80808080;\n\t"
+            "addc.cc.u32 %6, %14, 0x80808080;\n\t"
+            "addc.u32 %7, %15, 0x80808080;",
+            (LIGERO_O(out[0]), LIGERO_O(out[1]), LIGERO_O(out[2]),
+             LIGERO_O(out[3]), LIGERO_O(out[4]), LIGERO_O(out[5]),
+             LIGERO_O(out[6]), LIGERO_O(out[7])),
+            (LIGERO_R(limbs[0]), LIGERO_R(limbs[1]), LIGERO_R(limbs[2]),
+             LIGERO_R(limbs[3]), LIGERO_R(limbs[4]), LIGERO_R(limbs[5]),
+             LIGERO_R(limbs[6]), LIGERO_R(limbs[7])));
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint32_t w = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t b = ((limbs[i] >> (8 * j)) & 0xFFu) + carry;
-      carry = b > 127u ? 1u : 0u;
-      w |= ((b - (carry << 8)) & 0xFFu) << (8 * j);
-    }
-    out[i] = w;
-  }
+  for (int i = 0; i < 8; ++i) out[i] ^= 0x80808080u;
 }
 
 // The twiddle index of element i: (i / 2^lbc) * 2^lc + i mod 2^lc.
@@ -159,11 +186,35 @@ static inline bool twiddles_fit(long long X, long long tw_ls, long long lbc,
   return (last >> lbc) * cols + (in_row < cols ? in_row : cols - 1) < tw_ls;
 }
 
-LIGERO_HD void digitize_at(const uint32_t* x, uint32_t* out, uint32_t X,
-                           uint32_t i) {
+// Digitize reads limb l of element i at x[l*ls + i*es], one element a
+// thread: on the engine's AoS rows viewed as planes (ls = 1, es = 8, x at
+// a 16-byte boundary: digitize_aos) an element's 32 bytes as two 16-byte
+// loads, else word by word at any strides (planar input has es = 1).
+// Out is (8, X) contiguous.
+enum { kDigitThreads = 256 };
+
+static inline bool digitize_aos(long long ls, long long es,
+                                unsigned long long x) {
+  return ls == 1 && es == 8 && x % 16 == 0;
+}
+
+template <bool kAos>
+LIGERO_HD void digitize_at(const uint32_t* x, uint32_t ls, uint32_t es,
+                           uint32_t* out, uint32_t X, uint32_t i) {
   uint32_t a[8], r[8];
+  if (kAos) {
+#ifdef __CUDACC__
+    const uint4 lo = *(const uint4*)(x + 8u * i);
+    const uint4 hi = *(const uint4*)(x + 8u * i + 4u);
+    a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
+    a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+#else
+    for (int l = 0; l < 8; ++l) a[l] = x[8u * i + l];
+#endif
+  } else {
 #pragma unroll
-  for (int l = 0; l < 8; ++l) a[l] = x[(uint32_t)l * X + i];
+    for (int l = 0; l < 8; ++l) a[l] = x[(uint32_t)l * ls + i * es];
+  }
   canonical_to_packed(a, r);
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[(uint32_t)l * X + i] = r[l];
@@ -187,12 +238,12 @@ renorm_kernel(const int32_t* __restrict__ slots,
     renorm_at<kMode>(slots, tw, tw_ls, tw_lbc, tw_lc, out, X, i);
 }
 
-__global__ void __launch_bounds__(256)
-digitize_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                uint32_t X) {
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < X; i += stride)
-    digitize_at(x, out, X, i);
+template <bool kAos>
+__global__ void __launch_bounds__(kDigitThreads)
+digitize_kernel(const uint32_t* __restrict__ x, uint32_t ls, uint32_t es,
+                uint32_t* __restrict__ out, uint32_t X) {
+  const uint32_t i = blockIdx.x * kDigitThreads + threadIdx.x;
+  if (i < X) digitize_at<kAos>(x, ls, es, out, X, i);
 }
 
 inline unsigned grid_for(unsigned long long work) {
@@ -244,15 +295,27 @@ extern "C" int ligero_renorm(const void* slots, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// Canonical limbs (8, X) -> packed signed base-256 digits (8, X), both
-// contiguous, not aliasing.  8*X < 2^32.  Returns cudaGetLastError().
-extern "C" int ligero_digitize(const void* x, void* out, long long X,
-                               void* stream) {
-  if (X < 0 || 8 * X >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+// Canonical limbs -> packed signed base-256 digits (8, X): limb l of
+// element i at x[l*ls + i*es] (ls, es >= 0), out contiguous, not aliasing
+// x.  8*X < 2^32 and every offset read below 2^32.  Returns
+// cudaGetLastError().
+extern "C" int ligero_digitize(const void* x, long long ls, long long es,
+                               void* out, long long X, void* stream) {
+  if (X < 0 || 8 * X >= (1ll << 32) || ls < 0 || es < 0 ||
+      (X > 0 && 7 * ls + (X - 1) * es >= (1ll << 32)))
+    return (int)cudaErrorInvalidValue;
   if (X == 0) return 0;
-  ligero_rn::digitize_kernel<<<ligero_rn::grid_for((unsigned long long)X),
-                               256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)out, (uint32_t)X);
+  using namespace ligero_rn;
+  const unsigned blocks =
+      (unsigned)((X + kDigitThreads - 1) / kDigitThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (digitize_aos(ls, es, (unsigned long long)x))
+    digitize_kernel<true><<<blocks, kDigitThreads, 0, s>>>(
+        (const uint32_t*)x, 1u, 8u, (uint32_t*)out, (uint32_t)X);
+  else
+    digitize_kernel<false><<<blocks, kDigitThreads, 0, s>>>(
+        (const uint32_t*)x, (uint32_t)ls, (uint32_t)es, (uint32_t*)out,
+        (uint32_t)X);
   return (int)cudaGetLastError();
 }
 

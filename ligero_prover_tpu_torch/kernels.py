@@ -55,8 +55,9 @@ SIGNATURES = {
     # tw[:, (i >> tw_lbc) << tw_lc | i & (2^tw_lc - 1)]; mode 1 only),
     # out (8, X), X, mode (0 final, 1 mid, 2 pack), stream
     "ligero_renorm": (_P, _P, _I64, _I64, _I64, _P, _I64, _I32, _P),
-    # x (8, X), out (8, X), X, stream
-    "ligero_digitize": (_P, _P, _I64, _P),
+    # x, x_limb_stride, x_element_stride (limb l of element i at
+    # x[l*ls + i*es]), out (8, X), X, stream
+    "ligero_digitize": (_P, _I64, _I64, _P, _I64, _P),
     # blocks, threads, stream: an empty kernel, the launch floor
     "ligero_empty": (_I32, _I32, _P),
 }

@@ -274,8 +274,8 @@ def encode_rows_mxu_core(rows: torch.Tensor, tabs: dict, n: int):
     if rows.shape[1] != r1 * c1 or n != r2 * c2:
         raise ValueError(f"rows {tuple(rows.shape)} -> n={n} do not match "
                          f"the tables' geometry {tabs['geom']}")
-    x = rows.movedim(-1, 0).contiguous()                   # (8, B, w)
-    xp = mr.digitize(x).view(NLIMB, b, r1, c1)
+    # (8, B, w) planes viewed in place: digitize reads the AoS rows
+    xp = mr.digitize(rows.movedim(-1, 0)).view(NLIMB, b, r1, c1)
     b1 = mr.renorm_mid(level1_slots(xp, tabs), tabs["tw1"])
     a2 = mr.renorm_mid(level2_slots(b1, tabs), tabs["tw3"])
     v = mr.renorm_final(level3_slots(a2, tabs))            # (8, c2, B, r2)

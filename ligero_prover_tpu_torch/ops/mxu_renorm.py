@@ -202,16 +202,42 @@ def _renorm(name: str, slots: torch.Tensor, tw: torch.Tensor | None):
     return out
 
 
+def digitize_args(x: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
+    """The operand that KR digitize reads for (8, ...) limbs `x`, with its
+    limb stride, element stride and element count: `x` itself where its
+    trailing axes collapse to one element stride (a contiguous tensor, a
+    slice of rows, the engine's AoS rows (B, w, 8) viewed as planes, at
+    limb stride 1 and element stride 8) and every offset read fits the
+    kernel's 32-bit index; else a contiguous copy."""
+    X = x[0].numel()
+    es, span = 1, 1
+    for size, stride in reversed(list(zip(x.shape[1:], x.stride()[1:]))):
+        if size == 1:
+            continue
+        if span == 1:
+            es, span = stride, size * stride
+        elif stride == span:
+            span *= size
+        else:
+            break
+    else:
+        ls = x.stride(0)
+        if X == 0 or 7 * ls + (X - 1) * es < 1 << 32:
+            return x, ls, es, X
+    return x.contiguous(), max(X, 1), 1, X
+
+
 def digitize(x):
     """KR digitize: (8, ...) canonical limbs -> (8, ...) packed signed
-    base-256 digits."""
+    base-256 digits, contiguous.  `x` is read in place where
+    :func:`digitize_args` allows."""
     if x.device.type == "cpu":
         return digitize_plain(x)
     _check("digitize", x, NLIMB)
-    x = x.contiguous()
-    out = torch.empty_like(x)
+    xa, ls, es, n = digitize_args(x)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     rc = kernels.lib().ligero_digitize(
-        x.data_ptr(), out.data_ptr(), x[0].numel(),
+        xa.data_ptr(), ls, es, out.data_ptr(), n,
         kernels.stream_handle(x.device))
     kernels.check(rc, "digitize")
     LAUNCHES["digitize"] += 1

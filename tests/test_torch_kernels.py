@@ -1,11 +1,11 @@
 """The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod), K3
-(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly passes)
-and KE (planar element-wise ops and quad-terms) against their plain
-PyTorch versions, the golden Python-int model and hashlib; the executor (planar, the CUDA
-default, and AoS) and a whole proof on the card against the same on the
-CPU.  Every test here needs a CUDA device and
-skips without one.  This file imports no JAX, so it runs on a machine
-without it:
+(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly
+passes), KE (planar element-wise ops and quad-terms) and KR digitize
+against their plain PyTorch versions, the golden Python-int model and
+hashlib; the executor (planar, the CUDA default, and AoS) and a whole
+proof on the card against the same on the CPU.  Every test here needs a
+CUDA device and skips without one.  This file imports no JAX, so it runs
+on a machine without it:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 """
@@ -395,19 +395,53 @@ def test_quad_terms_kernel_matches_plain(cuda_device, n):
 
 
 def test_mulmod_fma_kernel_matches_plain(cuda_device):
+    """mulmod_fma on full planes (16-byte units, and single elements at an
+    odd size), times a per-row scalar, and with an addend whose planes
+    start off a 16-byte boundary."""
     gen = np.random.default_rng(30)
-    for canonical, shape in ((True, (3, 1000)), (False, (1027,))):
-        acc, x, y = (to_t(np.moveaxis(rand_limbs(gen, shape, canonical),
-                                      -1, 0), cuda_device)
-                     for _ in range(3))
+
+    def planes(shape, canonical):
+        return to_t(np.moveaxis(rand_limbs(gen, shape, canonical), -1, 0),
+                    cuda_device)
+    cases = [tuple(planes(shape, canonical) for _ in range(3))
+             for canonical, shape in ((True, (3, 1000)), (False, (1027,)))]
+    x = planes((3, 1024), False)
+    cases.append((planes((3, 1024), False), x, planes((3, 1), False)))
+    wide = planes((3, 1025), False)
+    cases.append((wide[:, :, 1:], x, planes((3, 1024), False)))
+    for acc, x, y in cases:
         before = tfm.LAUNCHES["mulmod_fma_planar"]
         got = tfm.mulmod_fma_planar(acc, x, y)
         torch.cuda.synchronize()
         assert tfm.LAUNCHES["mulmod_fma_planar"] == before + 1
         assert torch.equal(got.cpu(), tfm.mulmod_fma_planar_plain(
             acc.cpu(), x.cpu(), y.cpu()))
+    acc, x, y = cases[0]
     with pytest.raises(ValueError):
-        tfm.mulmod_fma_planar(acc[:, :5], x, y)
+        tfm.mulmod_fma_planar(acc[:, :2], x, y)
+
+
+def test_digitize_kernel_reads_views_in_place(cuda_device):
+    """digitize on the engine's AoS rows viewed as planes (read in place),
+    on planar rows, on a slice of rows and on views it copies, with
+    non-canonical words, against the plain version."""
+    from ligero_prover_tpu_torch.ops import mxu_renorm as tmr
+    gen = np.random.default_rng(32)
+    rows = rand_limbs(gen, (4, 256), canonical=False)
+    rows[0, :4] = ints_to_limbs([(1 << 256) - 1, int("7f" * 32, 16),
+                                 int("80" * 32, 16), F.MODULUS])
+    r = to_t(rows, cuda_device)
+    planar = r.movedim(-1, 0).contiguous()
+    views = [r.movedim(-1, 0), r[1:3].movedim(-1, 0), planar,
+             planar[:, 1:3], planar[:, :, 1:], planar.transpose(1, 2),
+             planar.view(8, -1)[:, ::2]]
+    for view in views:
+        before = tmr.LAUNCHES["digitize"]
+        got = tmr.digitize(view)
+        torch.cuda.synchronize()
+        assert tmr.LAUNCHES["digitize"] == before + 1
+        assert got.is_contiguous() and got.shape == view.shape
+        assert torch.equal(got.cpu(), tmr.digitize_plain(view.cpu()))
 
 
 def test_renorm_kernels_and_engine_on_the_card(cuda_device):

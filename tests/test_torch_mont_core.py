@@ -81,35 +81,59 @@ extern "C" void k2(const uint32_t* x, const uint32_t* y, uint32_t* out,
 
 extern "C" uint32_t k2_threads(uint32_t n) { return mulmod_threads(n); }
 
-// KE mont_scalar as its kernel runs it: the scalar's limbs read once (at
-// limb stride s_ls), then element i on thread i
-// KE mont_mul and mulmod as launch_product runs them: every thread of
-// every CTA of the run geometry (rows of y_div > 1 elements with one y
-// element each, else one run with y a full plane), 4-element units if vec
-template <bool kMulmod, bool kRow>
+// KE mont_mul, mulmod and mulmod_fma as launch_product runs them: every
+// thread of every CTA of the run geometry (rows of y_div > 1 elements with
+// one y element each, else one run with y a full plane), 4-element units
+// if vec; z is mulmod_fma's addend
+template <int kMode, bool kRow>
 static void ke_product_runs(const uint32_t* x, uint32_t x_ls,
-                            const uint32_t* y, uint32_t y_ls, uint32_t* out,
+                            const uint32_t* y, uint32_t y_ls,
+                            const uint32_t* z, uint32_t z_ls, uint32_t* out,
                             const ligero_pl::RunGeom& g) {
   for (uint32_t c = 0; c < ligero_pl::run_ctas(g); ++c)
     for (uint32_t t = 0; t < ligero_pl::kRunThreads; ++t) {
       if (g.vec)
-        ligero_pl::run_product_at<kMulmod, kRow, 4>(x, x_ls, y, y_ls, out, g,
-                                                    c, t);
+        ligero_pl::run_product_at<kMode, kRow, 4>(x, x_ls, y, y_ls, z, z_ls,
+                                                  out, g, c, t);
       else
-        ligero_pl::run_product_at<kMulmod, kRow, 1>(x, x_ls, y, y_ls, out, g,
-                                                    c, t);
+        ligero_pl::run_product_at<kMode, kRow, 1>(x, x_ls, y, y_ls, z, z_ls,
+                                                  out, g, c, t);
     }
 }
 
-extern "C" void ke_product(const uint32_t* x, uint32_t x_ls,
-                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
-                           uint32_t* out, uint32_t n, int mulmod, int vec) {
+template <int kMode>
+static void ke_product_mode(const uint32_t* x, uint32_t x_ls,
+                            const uint32_t* y, uint32_t y_ls, uint32_t y_div,
+                            const uint32_t* z, uint32_t z_ls, uint32_t* out,
+                            uint32_t n, int vec) {
   const bool row = y_div > 1u;
   const ligero_pl::RunGeom g = ligero_pl::run_geom(n, row ? y_div : n, vec);
-  if (mulmod && row) ke_product_runs<true, true>(x, x_ls, y, y_ls, out, g);
-  else if (mulmod) ke_product_runs<true, false>(x, x_ls, y, y_ls, out, g);
-  else if (row) ke_product_runs<false, true>(x, x_ls, y, y_ls, out, g);
-  else ke_product_runs<false, false>(x, x_ls, y, y_ls, out, g);
+  if (row)
+    ke_product_runs<kMode, true>(x, x_ls, y, y_ls, z, z_ls, out, g);
+  else
+    ke_product_runs<kMode, false>(x, x_ls, y, y_ls, z, z_ls, out, g);
+}
+
+// mode: 2 mont_mul, 3 mulmod, 5 mulmod_fma (ligero_planar_eltwise's)
+extern "C" void ke_product(const uint32_t* x, uint32_t x_ls,
+                           const uint32_t* y, uint32_t y_ls, uint32_t y_div,
+                           const uint32_t* z, uint32_t z_ls, uint32_t* out,
+                           uint32_t n, int mode, int vec) {
+  if (mode == ligero_pl::kMont)
+    ke_product_mode<ligero_pl::kMont>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
+                                      n, vec);
+  else if (mode == ligero_pl::kMulmod)
+    ke_product_mode<ligero_pl::kMulmod>(x, x_ls, y, y_ls, y_div, z, z_ls,
+                                        out, n, vec);
+  else
+    ke_product_mode<ligero_pl::kFma>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
+                                     n, vec);
+}
+
+// whether launch_product moves 16-byte units
+extern "C" int run_vec(uint32_t n, uint32_t x_ls, int x16, int out16,
+                       int row, uint32_t y_div, uint32_t y_ls, int y16) {
+  return ligero_pl::run_vec(n, x_ls, x16, out16, row, y_div, y_ls, y16);
 }
 
 // quad-terms as ligero_planar_quad_terms runs it: rows of n elements,
@@ -133,6 +157,8 @@ extern "C" uint32_t run_ctas(uint32_t n, uint32_t len, int vec) {
   return ligero_pl::run_ctas(ligero_pl::run_geom(n, len, vec));
 }
 
+// KE mont_scalar as its kernel runs it: the scalar's limbs read once (at
+// limb stride s_ls), then element i on thread i
 extern "C" void mont_scalar(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* sc, uint32_t s_ls, uint32_t* out,
                             uint32_t n) {
@@ -171,7 +197,9 @@ def _build(tmp_path_factory, name, defines):
     lib.k2_threads.argtypes = [u32]
     lib.k2_threads.restype = u32
     lib.mont_scalar.argtypes = [ptr, u32, ptr, u32, ptr, u32]
-    lib.ke_product.argtypes = [ptr, u32, ptr, u32, u32, ptr, u32, i32, i32]
+    lib.ke_product.argtypes = [ptr, u32, ptr, u32, u32, ptr, u32, ptr, u32,
+                               i32, i32]
+    lib.run_vec.argtypes = [u32, u32, i32, i32, i32, u32, u32, i32]
     lib.quad_terms.argtypes = [ptr, u32, u32, ptr, u32, ptr, u32, ptr, i32]
     lib.run_ctas.argtypes = [u32, u32, i32]
     lib.run_ctas.restype = u32
@@ -429,32 +457,52 @@ def _strided(planes, ls):
     return out
 
 
-@pytest.mark.parametrize("vec,n", [(True, 2048), (False, 1030)])
-@pytest.mark.parametrize("form", ["row", "full", "one"])
-@pytest.mark.parametrize("name", ["mont_mul_planar", "mulmod_planar"])
+# (name, form, vec, n): mulmod_fma in single elements only, the form its
+# launch runs
+KE_PRODUCT_CASES = [
+    (name, form, vec, n)
+    for name in ("mont_mul_planar", "mulmod_planar", tfm.FMA)
+    for form in ("row", "full", "one")
+    for vec, n in ((True, 2048), (False, 1030))
+    if not (name == tfm.FMA and vec)]
+
+
+@pytest.mark.parametrize("name,form,vec,n", KE_PRODUCT_CASES)
 def test_ke_product_element_function_matches_plain(run_core, name, form,
                                                    vec, n):
-    """KE mont_mul and mulmod on the carry-chain products, every thread of
-    the run geometry, on (8, 3, n) rows at a padded limb stride: times a
-    per-row scalar (8, 3, 1) read once per thread (the check's calls),
-    a full plane (the linear test) or one scalar for all (8, 1, 1);
-    16-byte units (n a multiple of 4) or single elements; non-canonical
-    operands with the edge values and carry-heavy limb patterns; against
-    the plain versions."""
+    """KE mont_mul, mulmod and mulmod_fma on the carry-chain products,
+    every thread of the run geometry, on (8, 3, n) rows at a padded limb
+    stride: times a per-row scalar (8, 3, 1) read once per thread (the
+    check's calls), a full plane (the linear test) or one scalar for all
+    (8, 1, 1); 16-byte units (n a multiple of 4) or single elements
+    (mulmod_fma: single elements, as its launch runs it);
+    non-canonical operands with the edge values and carry-heavy limb
+    patterns (mulmod_fma: its addend z too, and the first row of x and z
+    canonical); against the plain versions."""
     rows = 3
     gen = np.random.default_rng(n + len(form) + len(name))
     x = _wild_rows(gen, rows * n).T.reshape(8, rows, n)
     yshape = {"row": (rows, 1), "full": (rows, n), "one": (1, 1)}[form]
     ycount = int(np.prod(yshape))
     y = _wild_rows(gen, ycount)[::-1].T.reshape((8,) + yshape)
+    z = _wild_rows(gen, rows * n)[::-1].T.reshape(8, rows, n)
+    if name == tfm.FMA:
+        x[:, 0] = rand_limbs(gen, (n,)).T
+        z[:, 0] = rand_limbs(gen, (n,)).T
     pad = 4 if vec else 3
     xs, ys = _strided(x, rows * n + pad), _strided(y, ycount + pad)
+    zs = _strided(z, rows * n + 2 * pad)
     y_div = {"row": n, "full": 1, "one": rows * n}[form]
     out = np.zeros((8, rows * n), dtype=np.uint32)
+    mode = tfm.PLANAR_MODE.get(name, tfm.FMA_MODE)
     run_core.ke_product(xs.ctypes.data, rows * n + pad, ys.ctypes.data,
-                        ycount + pad, y_div, out.ctypes.data, rows * n,
-                        int(name == "mulmod_planar"), int(vec))
-    want = getattr(tfm, name + "_plain")(to_t(x), to_t(y))
+                        ycount + pad, y_div, zs.ctypes.data,
+                        rows * n + 2 * pad, out.ctypes.data, rows * n, mode,
+                        int(vec))
+    if name == tfm.FMA:
+        want = tfm.mulmod_fma_planar_plain(to_t(z), to_t(x), to_t(y))
+    else:
+        want = getattr(tfm, name + "_plain")(to_t(x), to_t(y))
     np.testing.assert_array_equal(out, to_np(want).reshape(8, rows * n))
 
 
@@ -515,11 +563,47 @@ def test_quad_terms_element_function_matches_plain(run_core, case, vec, n):
 @pytest.mark.parametrize("n,length,vec", [(16 * 32768, 32768, 1),
                                           (32 * 32768, 32768, 1),
                                           (16 * 32768, 16 * 32768, 1),
+                                          (16 * 32768, 32768, 0),
+                                          (16 * 32768, 16 * 32768, 0),
                                           (3 * 1030, 1030, 0),
                                           (16 * 6, 6, 0)])
 def test_run_geometry_matches_chip_smoke(core, n, length, vec):
-    """The CTAs of KE mont_mul, mulmod and quad-terms at the check's calls
-    and at odd sizes, as chip_smoke.py computes them for the launch
-    floor."""
+    """The CTAs of KE mont_mul, mulmod, mulmod_fma and quad-terms at the
+    check's calls, at mulmod_fma's (8, 16, 32768) calls (row and full
+    forms, single elements) and at odd sizes, as chip_smoke.py computes
+    them for the launch floor."""
     from chip_smoke import run_grid
     assert core.run_ctas(n, length, vec) == run_grid(n, length, vec)[0]
+
+
+# (n, x_ls, row, y_div, y_ls, misaligned operand or None, vec): the
+# check's calls of mont_mul and the linear test's, mulmod's, and the cases
+# that fall back to single elements
+N16 = 16 * 32768
+VEC_CASES = [
+    (N16, N16, True, 32768, 16, None, True),
+    (N16, N16, False, 1, N16, None, True),
+    (N16, N16, True, 32768, 16, "y", True),
+    (N16, N16, False, 1, N16, "y", False),
+    (N16, N16, False, 1, N16 + 2, None, False),
+    (N16, N16 + 1, False, 1, N16, None, False),
+    (N16, N16, True, 32768, 16, "x", False),
+    (N16, N16, False, 1, N16, "out", False),
+    (3 * 1030, 3 * 1030, True, 1030, 3, None, False),
+    (16 * 6, 16 * 6, True, 6, 3, None, False),
+]
+
+
+@pytest.mark.parametrize("case", VEC_CASES)
+def test_run_vec_matches_chip_smoke(core, case):
+    """Whether KE mont_mul and mulmod move 16-byte units, as
+    launch_product decides and as chip_smoke.py's run_vec mirrors it for
+    the launch floor."""
+    from chip_smoke import run_vec
+    n, x_ls, row, y_div, y_ls, bad, vec = case
+    flags = {op: int(op != bad) for op in ("x", "y", "out")}
+    got = core.run_vec(n, x_ls, flags["x"], flags["out"], int(row), y_div,
+                       y_ls, flags["y"])
+    assert bool(got) is vec
+    assert run_vec(n, x_ls, flags["x"], flags["out"], row, y_div, y_ls,
+                   flags["y"]) is vec

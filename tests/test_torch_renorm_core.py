@@ -1,20 +1,26 @@
 """The element functions of the KR kernels (``csrc/renorm.cu``) on the CPU.
 
-``renorm_at<kFinal|kMid|kPack>`` and ``digitize_at`` run over every
-element of a call, as the kernels run them, against the plain PyTorch
-versions ``mr.renorm_*_plain`` and ``mr.digitize_plain`` (which
-``tests/test_torch_mxu_renorm.py`` holds against the JAX package's XLA
-twins), at k=256 with both levels' geometry: level 1's slots
+``renorm_at<kFinal|kMid|kPack>`` runs over every element of a call, as the
+kernels run it, against the plain PyTorch versions ``mr.renorm_*_plain``
+(which ``tests/test_torch_mxu_renorm.py`` holds against the JAX package's
+XLA twins), at k=256 with both levels' geometry: level 1's slots
 (64, R1, B, C1) against ``tw1`` (8, R1, 1, C1) and level 2's
 (64, R2, B, C2) against ``tw3`` (8, R2, 1, C2), the table read with the
 shifts the wrapper passes (``mr.twiddle_shifts``), and a table of the
 slots' own shape at an X that is not a power of two.  Slot sets: a level
 product of random canonical rows, of every digit +127 or -128, and zero.
-Then field.cuh's ``redc_cc`` (the carry-chain reduction the KR kernels
-run, PTX through the header's interpreter ``cc_run``) against ``redc``
-and a Python-int model of the reference on edge and random 512-bit U.
-The sources are compiled with g++; the tests skip where it is absent.
-Exact: tolerance 0.
+``canonical_to_packed`` (one 256-bit add of 0x80..80 through the header's
+PTX interpreter ``cc_run``, then XOR) against the byte-serial recoding it
+replaced (kept here as the oracle) and Python ints on edge, random,
+canonical and byte-pattern words.  ``digitize_at`` over every thread of
+each form (word by word on planar rows and at an element stride of 2, two
+16-byte loads on the engine's AoS rows viewed as planes) against
+``mr.digitize_plain`` and the JAX ``digitize_xla``; the wrapper's choice
+of what it reads in place (``mr.digitize_args``) and the entry point's
+choice of form (``digitize_aos``).  Then field.cuh's ``redc_cc`` (the
+carry-chain reduction the KR kernels run) against ``redc`` and a
+Python-int model of the reference on edge and random 512-bit U.  The sources are compiled with
+g++; the tests skip where it is absent.  Exact: tolerance 0.
 
     python -m pytest tests/test_torch_renorm_core.py -q
 """
@@ -39,9 +45,28 @@ CSRC = Path(tmr.__file__).resolve().parent.parent / "csrc"
 K, N, B = 256, 1024, 4
 P, R = F.MODULUS, 1 << 256
 
+# canonical_to_packed as it was before it became one 256-bit add: the
+# byte-serial signed recoding, kept here as the oracle
+OLD_PACKED = r"""
+static void old_canonical_to_packed(const uint32_t limbs[8],
+                                    uint32_t out[8]) {
+  uint32_t carry = 0;
+  for (int i = 0; i < 8; ++i) {
+    uint32_t w = 0;
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t b = ((limbs[i] >> (8 * j)) & 0xFFu) + carry;
+      carry = b > 127u ? 1u : 0u;
+      w |= ((b - (carry << 8)) & 0xFFu) << (8 * j);
+    }
+    out[i] = w;
+  }
+}
+"""
+
 HARNESS = r"""
 #include "renorm.cu"
 using namespace ligero_rn;
+""" + OLD_PACKED + r"""
 
 // a renorm call as its kernel runs it: element i on thread i
 extern "C" void renorm(const int32_t* slots, const uint32_t* tw,
@@ -57,8 +82,34 @@ extern "C" void renorm(const int32_t* slots, const uint32_t* tw,
   }
 }
 
-extern "C" void digitize(const uint32_t* x, uint32_t* out, uint32_t X) {
-  for (uint32_t i = 0; i < X; ++i) digitize_at(x, out, X, i);
+// a digitize call as its kernel runs it, 16-byte AoS loads (aos) or
+// word by word: element i on thread i
+extern "C" void digitize(const uint32_t* x, uint32_t ls, uint32_t es,
+                         uint32_t* out, uint32_t X, int aos) {
+  for (uint32_t i = 0; i < X; ++i) {
+    if (aos)
+      digitize_at<true>(x, ls, es, out, X, i);
+    else
+      digitize_at<false>(x, ls, es, out, X, i);
+  }
+}
+
+// whether the entry point reads x as the AoS view, 16 bytes at a time
+extern "C" int aos_form(long long ls, long long es, unsigned long long x) {
+  return digitize_aos(ls, es, x);
+}
+
+extern "C" int digitize_threads_per_cta() { return kDigitThreads; }
+
+// n values (8 limbs each) through canonical_to_packed, or (old) through
+// the byte-serial recoding it replaced
+extern "C" void packed(const uint32_t* x, uint32_t* out, int n, int old) {
+  for (int i = 0; i < n; ++i) {
+    if (old)
+      old_canonical_to_packed(x + 8 * i, out + 8 * i);
+    else
+      canonical_to_packed(x + 8 * i, out + 8 * i);
+  }
 }
 
 // n 512-bit U (16 limbs each) through redc or redc_cc
@@ -97,7 +148,10 @@ def core(tmp_path_factory):
     ptr, u32, i32, i64 = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
                           ctypes.c_longlong)
     lib.renorm.argtypes = [ptr, ptr, u32, u32, u32, ptr, u32, i32]
-    lib.digitize.argtypes = [ptr, ptr, u32]
+    lib.digitize.argtypes = [ptr, u32, u32, ptr, u32, i32]
+    lib.aos_form.argtypes = [i64, i64, ctypes.c_uint64]
+    lib.digitize_threads_per_cta.argtypes = []
+    lib.packed.argtypes = [ptr, ptr, i32, i32]
     lib.reduce.argtypes = [ptr, ptr, i32, i32]
     lib.twiddle.argtypes = [u32, u32, u32]
     lib.twiddle.restype = u32
@@ -192,13 +246,175 @@ def test_renorm_mid_with_a_full_table(core, levels, x):
         got, to_np(tmr.renorm_mid_plain(slots, full)))
 
 
-def test_digitize_element_function_matches_plain(core):
-    x = _rows().reshape(8, -1).contiguous()
-    n = x.shape[1]
+M = int("80" * 32, 16)
+MAX = (1 << 256) - 1
+
+
+def byte_words(gen, count):
+    """256-bit words whose bytes are drawn from the recoding's edges."""
+    alphabet = np.array([0x00, 0x7E, 0x7F, 0x80, 0x81, 0xFF], np.uint8)
+    raw = alphabet[gen.integers(0, len(alphabet), (count, 32))]
+    return [int.from_bytes(bytes(row), "little") for row in raw]
+
+
+def wild_words():
+    """Non-canonical words: 2^256 - 1 and every byte 0x7F, 0x80 or 0xFF,
+    beside p and its neighbours."""
+    return [MAX, int("7f" * 32, 16), M, P, P + 1, P - 1, 0]
+
+
+def packed_inputs(name):
+    gen = np.random.default_rng(len(name))
+    if name == "edges":
+        return wild_words() + [R - P, (1 << 255) - 1, 1 << 255,
+                               int("81" * 32, 16), int("7e" * 32, 16)]
+    if name == "random":
+        return limbs_to_ints(rand_limbs(gen, (20000,), canonical=False))
+    if name == "canonical":
+        return limbs_to_ints(rand_limbs(gen, (20000,)))
+    assert name == "bytes"
+    return byte_words(gen, 20000)
+
+
+@pytest.mark.parametrize("name", ["edges", "random", "canonical", "bytes"])
+def test_canonical_to_packed_is_the_byte_loop(core, name):
+    """The 256-bit add of M = 0x80..80, XOR M, equals the byte-serial
+    recoding on every input class: edge words (p - 1, p, p + 1, 0,
+    2^256 - 1, M, every byte 0x7F), random 256-bit and canonical values,
+    and words of the bytes 0x00/0x7E/0x7F/0x80/0x81/0xFF; both equal the
+    identity on Python ints and the plain version."""
+    xs = packed_inputs(name)
+    x = ints_to_limbs(xs)
+    outs = []
+    for old in (1, 0):
+        out = np.zeros_like(x)
+        core.packed(x.ctypes.data, out.ctypes.data, len(xs), old)
+        outs.append(out)
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert limbs_to_ints(outs[1]) == [((v + M) & MAX) ^ M for v in xs]
+    np.testing.assert_array_equal(
+        outs[1], to_np(tmr._canonical_to_packed(to_t(x))))
+
+
+def _digit_rows(count):
+    """(count, 8) uint32 limbs: canonical rows with the edge values, then
+    the non-canonical words."""
+    rows = rand_limbs(np.random.default_rng(count), (count,))
+    special = ints_to_limbs(EDGES + wild_words())
+    rows[:len(special)] = special
+    return rows
+
+
+def run_digitize(core, view, aos):
+    """digitize_at over every thread of a call on `view`, read where and
+    at the strides digitize_args gives."""
+    xa, ls, es, n = tmr.digitize_args(view)
     out = np.zeros((8, n), dtype=np.uint32)
-    core.digitize(np.ascontiguousarray(to_np(x)).ctypes.data,
-                  out.ctypes.data, n)
-    np.testing.assert_array_equal(out, to_np(tmr.digitize_plain(x)))
+    core.digitize(xa.data_ptr(), ls, es, out.ctypes.data, n, int(aos))
+    return out
+
+
+# (form, the view it reads): planar at a padded limb stride (word by
+# word, element stride 1), the engine's AoS rows viewed as planes (16-byte
+# loads), and word by word at an element stride of 2
+DIGIT_CASES = ["planar", "aos", "strided"]
+
+
+@pytest.mark.parametrize("layout", DIGIT_CASES)
+def test_digitize_element_function_matches_plain(core, layout):
+    """digitize_at over every element of each form against the plain
+    version and the JAX package's digitize_xla, on canonical rows with the
+    edge values and on non-canonical words."""
+    from ligero_prover_tpu.ops.pallas import mxu_renorm as jmr
+    n = 1032
+    rows = _digit_rows(n)
+    if layout == "planar":                 # (8, n) at limb stride n + 8
+        base = np.zeros((8, n + 8), np.uint32)
+        base[:, :n] = rows.T
+        view = to_t_shared(base)[:, :n]
+    elif layout == "aos":                  # (n, 8) rows as (8, n) planes
+        base = np.ascontiguousarray(rows)
+        view = to_t_shared(base).movedim(-1, 0)
+    else:                                  # every other element of (n, 16)
+        base = np.zeros((8, 2 * n), np.uint32)
+        base[:, ::2] = rows.T
+        view = to_t_shared(base)[:, ::2]
+    got = run_digitize(core, view, layout == "aos")
+    np.testing.assert_array_equal(got, to_np(tmr.digitize_plain(view)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jmr.digitize_xla(np.ascontiguousarray(rows.T))))
+
+
+def to_t_shared(arr):
+    """An int32 tensor over the uint32 numpy buffer `arr` (no copy)."""
+    return torch.from_numpy(arr.view(np.int32))
+
+
+def _views():
+    """name -> ((8, ...) view over a numpy buffer, read in place?, (ls,
+    es) in place)."""
+    b, w = 3, 64
+    rows = np.arange(b * w * 8, dtype=np.uint32).reshape(b, w, 8)
+    planar = np.ascontiguousarray(np.moveaxis(rows, -1, 0))
+    wide = np.zeros((b, w, 16), np.uint32)
+    wide[..., :8] = rows
+    flat = np.ascontiguousarray(planar.reshape(8, -1))
+    t = to_t_shared
+    return {
+        "aos rows": (t(rows).movedim(-1, 0), True, (1, 8)),
+        "aos row slice": (t(rows)[1:3].movedim(-1, 0), True, (1, 8)),
+        "planar": (t(planar), True, (b * w, 1)),
+        "planar row slice": (t(planar)[:, 1:3], True, (b * w, 1)),
+        "every other element": (t(flat)[:, ::2], True, (b * w, 2)),
+        "aos of wider rows": (t(wide)[..., :8].movedim(-1, 0), True,
+                              (1, 16)),
+        "planar column slice": (t(planar)[:, :, :w // 2], False, None),
+        "transposed": (t(planar).transpose(1, 2), False, None),
+        "broadcast row": (t(planar)[:, :1].expand(8, b, w), False, None),
+    }
+
+
+@pytest.mark.parametrize("name", list(_views()))
+def test_digitize_wrapper_reads_views_in_place(core, name):
+    """digitize_args passes a view whose trailing axes collapse to one
+    element stride in place (the engine's AoS rows at limb stride 1 and
+    element stride 8, planar rows and slices of rows), and copies the
+    others; the kernel's element function over what it passes equals the
+    plain version of the view."""
+    view, in_place, strides = _views()[name]
+    xa, ls, es, n = tmr.digitize_args(view)
+    assert n == view[0].numel()
+    if in_place:
+        assert xa is view and (ls, es) == strides
+    else:
+        assert xa.is_contiguous() and (ls, es) == (n, 1)
+        assert xa.data_ptr() != view.data_ptr()
+    got = run_digitize(core, view, core.aos_form(ls, es, xa.data_ptr()))
+    np.testing.assert_array_equal(
+        got, to_np(tmr.digitize_plain(view)).reshape(8, -1))
+
+
+def test_digitize_geometry_matches_chip_smoke(core):
+    """The threads per CTA chip_smoke.py assumes for digitize's launch
+    floor are the kernel's."""
+    from chip_smoke import DIGIT_THREADS
+    assert DIGIT_THREADS == core.digitize_threads_per_cta()
+
+
+# (ls, es, x's address, 16-byte AoS loads?)
+FORM_CASES = [
+    (1, 8, 16, True), (1, 8, 0, True), (1, 8, 8, False), (1, 8, 4, False),
+    (4096, 1, 0, False), (1, 16, 0, False), (2, 8, 0, False),
+    (8, 1, 0, False)]
+
+
+@pytest.mark.parametrize("ls,es,xa,want", FORM_CASES)
+def test_digitize_reads_aos_rows_in_16_bytes_only_where_they_fit(
+        core, ls, es, xa, want):
+    """The entry point's choice: two 16-byte loads an element need the AoS
+    view's strides (limb stride 1, element stride 8) and x at a 16-byte
+    boundary; anything else is read word by word."""
+    assert bool(core.aos_form(ls, es, xa)) is want
 
 
 @pytest.mark.parametrize("x,bc,c", [(1 << 13, 1 << 10, 1 << 6),
