@@ -25,8 +25,12 @@ port's ``prove``/``verify`` entry points at production geometry (k=8192,
 n=32768) on the vbn254fr Poseidon-style guest of ``bench/e2e_prove.py``:
 the planar butterfly path at full depth, the AoS path at a reduced depth,
 and the planar path with the int8 engine (``USE_MXU``) at full depth, whose
-proof must equal the butterfly path's byte for byte.  Each run counts the
-kernel launches it makes, from zero.  Any failure raises and exits
+proof must equal the butterfly path's byte for byte, and (phase 8) the
+column-sharded prover of ``parallel/mesh.py`` with 4 shards on
+cuda:(i % cards) at full depth, whose proof must equal it too (its coset
+twist is KE mont_mul's tiled mode, checked and timed in phase 3 at the
+sharded path's calls).  Each run counts the kernel launches it makes, from
+zero.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before doing anything.
 
 The last two lines of output are the kernel table as JSON and the result
@@ -84,7 +88,7 @@ ISSUE_PER_CLK = 128
 PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
             "butterfly_dif": 164, "mont_mul_planar": 164,
             "mulmod_planar": 328, "quad_terms_planar": 328,
-            "mont_mul_scalar_planar": 164,
+            "mont_mul_scalar_planar": 164, "mont_mul_tiled_planar": 164,
             "mulmod_fma_planar": 328, "renorm_final": 108,
             "renorm_pack": 108, "renorm_mid": 272}
 # One SHA-256 compression, each operation one instruction (a rotate one
@@ -121,17 +125,19 @@ SASS_NAME = {
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
-    # KE mont_mul (mode 2): the per-row scalar form (the check's calls)
-    # and the full-plane form (the linear test); mulmod (3): the full-plane
-    # form; all in 16-byte units of 4 elements (SASS_ELEMENTS); mulmod_fma
-    # (5): the full-plane and the per-row form, in single elements
-    "mont_mul_planar": "run_product_kernelILi2ELb1ELb1EE",
-    "mont_mul_planar_full": "run_product_kernelILi2ELb0ELb1EE",
-    "mulmod_planar": "run_product_kernelILi3ELb0ELb1EE",
+    # KE mont_mul (mode 2): the per-row scalar form (the check's calls),
+    # the full-plane form (the linear test) and the tiled form (mode 6, the
+    # sharded encode's twist); mulmod (3): the full-plane form; all in
+    # 16-byte units of 4 elements (SASS_ELEMENTS); mulmod_fma (5): the
+    # full-plane and the per-row form, in single elements
+    "mont_mul_planar": "run_product_kernelILi2ELi1ELb1EE",
+    "mont_mul_planar_full": "run_product_kernelILi2ELi0ELb1EE",
+    "mont_mul_tiled_planar": "run_product_kernelILi2ELi2ELb1EE",
+    "mulmod_planar": "run_product_kernelILi3ELi0ELb1EE",
     "quad_terms_planar": "quad_terms_kernelILb1EE",
     "mont_mul_scalar_planar": "mont_scalar_kernel",
-    "mulmod_fma_planar": "run_product_kernelILi5ELb0ELb0EE",
-    "mulmod_fma_planar_row": "run_product_kernelILi5ELb1ELb0EE",
+    "mulmod_fma_planar": "run_product_kernelILi5ELi0ELb0EE",
+    "mulmod_fma_planar_row": "run_product_kernelILi5ELi1ELb0EE",
     "renorm_final": "renorm_kernelILi0E", "renorm_mid": "renorm_kernelILi1E",
     "renorm_pack": "renorm_kernelILi2E",
     # digitize on the engine's AoS rows viewed as planes (16-byte loads),
@@ -145,7 +151,8 @@ DIGIT_THREADS = 256
 # elements whose code one pass of the kernel's body holds (its SASS count
 # over this is per element); 1 where not listed
 SASS_ELEMENTS = {"mont_mul_planar": 4, "mont_mul_planar_full": 4,
-                 "mulmod_planar": 4, "quad_terms_planar": 4}
+                 "mont_mul_tiled_planar": 4, "mulmod_planar": 4,
+                 "quad_terms_planar": 4}
 
 
 def make_wat(rounds: int) -> str:
@@ -760,7 +767,7 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
         bytes it must move, the launch floor at its grid and the elements
         it computes."""
         xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
-        mode = fm.PLANAR_MODE.get(name, fm.FMA_MODE)
+        mode = fm.KE_MODE[name]
         out = torch.empty((8, size), dtype=torch.int32, device=device)
 
         def launch(xa, ya, out, *za):
@@ -770,11 +777,13 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
                 out.data_ptr(), size, mode, stream), name)
         times = launches_ms(launch, xa, ya, out,
                             *(() if z is None else (z,)))
-        row = y_div > 1
+        tiled = name == fm.TILED
+        row = y_div > 1 and not tiled
         vec = z is None and run_vec(size, x_ls, xa.data_ptr() % 16 == 0,
                                     out.data_ptr() % 16 == 0, row, y_div,
-                                    y_ls, ya.data_ptr() % 16 == 0)
-        grid = run_grid(size, y_div if row else size, vec)
+                                    y_ls, ya.data_ptr() % 16 == 0) \
+            and (not tiled or y_div % 4 == 0)
+        grid = run_grid(size, y_div if row or tiled else size, vec)
         # x (and z) read, out written, each y element read once
         return times, (64 if z is None else 96) * size + 4 * ya.numel(), \
             floor_ms(lib, stream, *grid), size
@@ -810,6 +819,32 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
                    "and (8,16,n) non-canonical", err, times,
                    cuda_ms(lambda: fm.mont_mul_planar_plain(x, y), 3), bnd,
                    floor)
+
+    # the tiled mode (6) at the sharded encode's calls, D = 4 shards of
+    # m = n/4 columns: the k-width flush's twist (8, 16, k) x one (8, 1, k)
+    # row, and the 2k mask row's (8, 1, 2k) x (8, 1, 2k); also on
+    # non-canonical words with the edge values
+    twist = [(planes((bsz, k)), planes((1, k))),
+             (planes((1, 2 * k)), planes((1, 2 * k)))]
+    err = compare_cases(fm.mont_mul_tiled_planar,
+                        fm.mont_mul_tiled_planar_plain,
+                        twist + [(xw[:, :, :k], yw[:, :1, :k]),
+                                 (xw.reshape(8, -1)[:, :2 * k][:, None],
+                                  yw.reshape(8, -1)[:, :2 * k])])
+    for i, (x, y) in enumerate(twist):
+        label = f"{tuple(x.shape)} x {tuple(y.shape)}"
+        times, nbytes, floor, size = ke_ms(fm.TILED, x, y)
+        bnd = bound(fm.TILED, nbytes, size)
+        _run_log(fm.TILED, label, err, times, floor, bnd)
+        CARD.setdefault("ke_tiled", {})[label] = {
+            "ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+        if i == 0:
+            report(results, fm.TILED, label + "; the 2k mask row's call "
+                   "and non-canonical words", err, times,
+                   cuda_ms(lambda: fm.mont_mul_tiled_planar_plain(x, y), 3),
+                   bnd, floor)
+    require(err == 0, "the tiled mode equals its plain version")
 
     # mode 3, no caller on the main path since quad-terms: full planes
     x, y = full
@@ -1286,13 +1321,13 @@ def configuration(planar, mxu=False):
         ntt.USE_PLANAR = ntt.USE_MXU = None
 
 
-def check_small_proofs(device):
+def check_small_proofs(device) -> dict:
     """CUDA planar == CUDA AoS == both with the int8 engine == CPU proof
     bytes at k=256, for the vbn254fr guest (batch rows only), for a guest
     with witness rows (linear and quadratic callback rows: the planar
     check's linear branch and a second encode per flush) and for the
     vbn254fr bit decomposition, whose vector division runs the invmod
-    ladder through K1 on the planar path."""
+    ladder through K1 on the planar path.  Returns each program's proof."""
     from ligero_prover_tpu_torch.ops import fieldmul as fm
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.prover import prove
@@ -1303,6 +1338,7 @@ def check_small_proofs(device):
                 "ecdsa_p256": wat_program(str(ECDSA[0]), ECDSA[1]),
                 "bit_decompose": wat_program(str(BIT_DECOMPOSE))}
     os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
+    out = {}
     try:
         for name, prog in programs.items():
             proofs = {}
@@ -1338,8 +1374,10 @@ def check_small_proofs(device):
             log(f"phase 4: the planar CUDA verifier accepts the CPU proof "
                 f"of {name}: {ok}")
             require(ok, f"{name}: planar CUDA verifier accepts")
+            out[name] = proofs["cpu"][0]
     finally:
         del os.environ["LIGERO_PROOF_TIMESTAMP"]
+    return out
 
 
 def tamper(proof: bytes) -> bytes:
@@ -1348,6 +1386,15 @@ def tamper(proof: bytes) -> bytes:
     env.ParseFromString(gzip.decompress(proof))
     env.ligero_proof.sampled_data.values[5] ^= 1
     return gzip.compress(env.SerializeToString())
+
+
+def plain_on_cuda() -> dict:
+    """How often each wrapper ran its plain version on CUDA tensors since
+    the counts were last reset."""
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha, \
+        mxu_renorm as mr
+    return {name: calls["cuda"] for name, calls in
+            {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS, **mr.PLAIN_CALLS}.items()}
 
 
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
@@ -1376,6 +1423,9 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
     with configuration(planar, mxu):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated; the prove's own peak is
+        # counted above it
+        before = torch.cuda.memory_allocated()
         T.clear_timers()
         for module in (fm, sha, mr):
             module.reset_counts()
@@ -1384,14 +1434,13 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
                     device=device)
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
+        prove_peak = torch.cuda.max_memory_allocated() - before
         t0 = time.perf_counter()
         vres = verify(prog, res.proof, geometry=geo, device=device)
         torch.cuda.synchronize()
         verify_s = time.perf_counter() - t0
         launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
-        plain = {name: calls["cuda"] for name, calls in
-                 {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS,
-                  **mr.PLAIN_CALLS}.items()}
+        plain = plain_on_cuda()
         peak = torch.cuda.max_memory_allocated()
         stages = {s: round(T.get_timer(s), 3)
                   for s in ("stage1", "stage2", "stage3")}
@@ -1399,7 +1448,8 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             f"rows={res.num_rows} prove_s={prove_s:.3f} "
             f"rows_per_s={res.num_rows / prove_s:.1f} stages_s={stages} "
             f"verify_s={verify_s:.3f} proof_bytes={len(res.proof)} "
-            f"max_memory_allocated={peak} launches={launches} "
+            f"max_memory_allocated={peak} prove_peak_above_before="
+            f"{prove_peak} (allocated before: {before}) launches={launches} "
             f"launches_per_row={sum(launches.values()) / res.num_rows:.2f} "
             f"plain_calls_on_cuda={plain}")
         require(res.ok, f"{label} prove self-check")
@@ -1457,6 +1507,95 @@ def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
     return launches
 
 
+SHARDS = 4
+SHARDED_KERNELS = PLANAR_KERNELS + ("mont_mul_tiled_planar", "mulmod")
+
+
+def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
+    """The column-sharded prover (``parallel/mesh.py``): make_wat(400) at
+    k=8192 through ``prove(mesh=make_mesh(...))`` with SHARDS shards on
+    cuda:(i % cards), whose proof must equal phase 5's `proof`, and
+    bit_decompose.wat at k=256 through the same mesh (its divisions run
+    K1 through the arena on the home device), whose proof must equal the
+    CPU proof of phase 4.  The launches are counted from zero
+    before each prove and read after it: every kernel of the sharded path
+    must have launched in the make_wat(400) prove, K1 in the bit_decompose
+    one, and no plain version may have run on CUDA tensors in either.  No
+    verify: the bytes equal phase 5's, which was verified.  Returns the
+    launch counts of the make_wat(400) prove."""
+    import torch
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha, \
+        mxu_renorm as mr
+    from ligero_prover_tpu_torch.parallel.mesh import make_mesh
+    from ligero_prover_tpu_torch.params import RowGeometry
+    from ligero_prover_tpu_torch.prover import prove
+    from ligero_prover_tpu_torch.utils import timer as T
+
+    cards = torch.cuda.device_count()
+    mesh = make_mesh([torch.device("cuda", i % cards)
+                      for i in range(SHARDS)])
+    devices = sorted(set(mesh.devices), key=str)
+    log(f"phase 8: {SHARDS} shards over {cards} card(s): "
+        + ", ".join(f"shard {d} -> {dev}"
+                    for d, dev in enumerate(mesh.devices)))
+    geo = RowGeometry(FULL_K)
+    prog = wat_program(make_wat(FULL_ROUNDS))
+    small = wat_program(str(BIT_DECOMPOSE))
+    with configuration(True):
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        # what earlier phases left allocated (caches, tables); the
+        # prove's own peak is counted above it
+        before = {str(dev): torch.cuda.memory_allocated(dev)
+                  for dev in devices}
+        T.clear_timers()
+        for module in (fm, sha, mr):
+            module.reset_counts()
+        t0 = time.perf_counter()
+        res = prove(prog, geometry=geo, encoding_seed=bytes(32), mesh=mesh)
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - t0
+        stages = {s: round(T.get_timer(s), 3)
+                  for s in ("stage1", "stage2", "stage3")}
+        peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
+                 - before[str(dev)] for dev in devices}
+        launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+        plain = plain_on_cuda()
+        for module in (fm, sha, mr):
+            module.reset_counts()
+        small_res = prove(small, geometry=RowGeometry(SMALL_K), mesh=mesh,
+                          batch_rows=8, encoding_seed=bytes(range(32)))
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        small_launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+        small_plain = plain_on_cuda()
+    log(f"phase 8: sharded k={FULL_K} n={geo.n} make_wat({FULL_ROUNDS}): "
+        f"rows={res.num_rows} prove_s={prove_s:.3f} "
+        f"rows_per_s={res.num_rows / prove_s:.1f} stages_s={stages} "
+        f"prove_peak_above_before_per_device={peaks} (allocated before "
+        f"the prove: {before}) launches={launches} "
+        f"launches_per_row={sum(launches.values()) / res.num_rows:.2f} "
+        f"plain_calls_on_cuda={plain} "
+        f"proof_bytes={len(res.proof)} equal to phase 5's: "
+        f"{res.proof == proof}")
+    log(f"phase 8: sharded k={SMALL_K} bit_decompose.wat: proof equal to "
+        f"the CPU proof of phase 4: {small_res.proof == bit_decompose}; "
+        f"launches={small_launches} plain_calls_on_cuda={small_plain}")
+    require(res.ok and small_res.ok, "sharded prove self-checks")
+    require(res.proof == proof, "the sharded proof equals phase 5's")
+    require(small_res.proof == bit_decompose,
+            "the sharded bit_decompose proof equals the CPU proof")
+    require(all(launches[k] > 0 for k in SHARDED_KERNELS),
+            f"every kernel of the sharded path launched: {launches}")
+    require(small_launches["mont_mul"] > 0,
+            f"K1 ran through the arena on the mesh: {small_launches}")
+    require(all(v == 0 for v in {**plain, **small_plain}.values()),
+            f"no plain version ran on CUDA tensors: {plain} {small_plain}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1464,6 +1603,7 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
@@ -1493,13 +1633,15 @@ def main() -> int:
         f"(IMAD.WIDE, IMAD.HI, all) per kernel: {CARD['sass']}")
 
     measured = check_kernels(device)
-    check_small_proofs(device)
+    small = check_small_proofs(device)
     os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
     launches, proof = prove_full(device, "phase 5", True, FULL_ROUNDS)
     aos, _ = prove_full(device, "phase 6", False, AOS_ROUNDS)
     mxu = prove_mxu(device, launches, proof)
+    sharded = prove_sharded(device, proof, small["bit_decompose"])
     launches.update({k: aos[k] for k in AOS_KERNELS})
     launches.update({k: mxu[k] for k in MXU_KERNELS})
+    launches[fm.TILED] = sharded[fm.TILED]
 
     meta = {
         "mont_mul": ("fieldmul.cu", "ops/pallas/fieldmul.py:260"),
@@ -1519,6 +1661,8 @@ def main() -> int:
         "quad_terms_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
         "mont_mul_scalar_planar": ("planar.cu",
                                    "ops/pallas/fieldmul.py:269"),
+        # _k_mont_mul's planar entry, tiled: the sharded encode's twist
+        "mont_mul_tiled_planar": ("planar.cu", "ops/pallas/fieldmul.py:260"),
         # no caller on any path of either package: launched in phase 3 only
         "mulmod_fma_planar": ("planar.cu", "ops/pallas/fieldmul.py:278"),
         "digitize": ("renorm.cu", "ops/pallas/mxu_renorm.py:146"),

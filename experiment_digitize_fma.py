@@ -456,8 +456,8 @@ EXP_SASS = {
     "old repack pack": "old_repack_kernelILi2E",
     "old fma": "old_fma_kernelILb0E",
     "old fma on mulmod_cc": "old_fma_kernelILb1E",
-    "fma 16-byte units, full": "run_product_kernelILi5ELb0ELb1EE",
-    "fma 16-byte units, row": "run_product_kernelILi5ELb1ELb1EE",
+    "fma 16-byte units, full": "run_product_kernelILi5ELi0ELb1EE",
+    "fma 16-byte units, row": "run_product_kernelILi5ELi1ELb1EE",
     "fma z first, full": "zfirst_fma_kernelILb0E",
     "fma z first, row": "zfirst_fma_kernelILb1E",
     "fma capped, full": "capped_fma_kernelILb0E",

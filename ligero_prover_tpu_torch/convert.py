@@ -14,6 +14,7 @@ import torch
 
 from .ops.fieldops import to_torch, to_numpy as _limbs_to_numpy
 from .ops.mxu_ntt import TABLE_KEYS, tables_to_device
+from .parallel.mesh import ColumnShards, shard
 
 
 def domain_tables_from_numpy(dom: dict, device=None) -> dict:
@@ -56,9 +57,26 @@ def accs_from_numpy(accs, device=None):
     return tuple(to_torch(np.asarray(a), device) for a in accs)
 
 
+def shard_columns(arr, D: int, axis: int = 0) -> ColumnShards:
+    """Whole column state (a SHA state (8, n): columns on axis 1; pending
+    elements or accumulators (n, 8): axis 0) -> the sharded executor's
+    :class:`ColumnShards` over D shards on the CPU, shard d holding
+    columns j = d (mod D)."""
+    x = arr if isinstance(arr, torch.Tensor) else to_torch(np.asarray(arr))
+    return shard(x, [torch.device("cpu")] * D, axis)
+
+
+def gather_columns(shards: ColumnShards) -> np.ndarray:
+    """:class:`ColumnShards` -> the whole state as uint32 numpy, columns in
+    natural order."""
+    return _limbs_to_numpy(shards.gather("cpu"))
+
+
 def to_numpy(x):
-    """Executor output -> numpy: limb tensors become uint32, tuples recurse,
-    Python scalars pass through."""
+    """Executor output -> numpy: limb tensors become uint32, column shards
+    are gathered, tuples recurse, Python scalars pass through."""
+    if isinstance(x, ColumnShards):
+        return gather_columns(x)
     if isinstance(x, (tuple, list)):
         return type(x)(to_numpy(v) for v in x)
     if isinstance(x, torch.Tensor):

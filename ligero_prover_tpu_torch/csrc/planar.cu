@@ -52,7 +52,11 @@
 // a full plane read as x is.
 // The second operand y is either a full plane (y_div = 1) or a value per
 // run of y_div consecutive elements (a per-row scalar over (8, B, n) rows
-// has y_div = n).  Mode kScalar (mont_scalar) is a kernel of its own: one
+// has y_div = n).  Mode kTiled (mont_mul only) reads y as one row of
+// y_div = w elements tiled over x: element i reads y[i mod w].  It is the
+// sharded encode's coset twist (ops/ntt.py, encode_rows_coset_planar_core):
+// (8, B, w) coefficient rows times one (8, w) table of 1/w times the
+// shard's powers, the 1/w scaling and the twist in one launch.  Mode kScalar (mont_scalar) is a kernel of its own: one
 // element s, read once per thread into registers, and field.cuh's
 // carry-chain product mont_mul_cc, about a third of mont_mul's
 // instructions: at the encode's (8, 16, k) call the product is then a
@@ -102,7 +106,8 @@ namespace ligero_pl {
 
 using namespace ligero_fm;
 
-enum { kAdd = 0, kSub = 1, kMont = 2, kMulmod = 3, kScalar = 4, kFma = 5 };
+enum { kAdd = 0, kSub = 1, kMont = 2, kMulmod = 3, kScalar = 4, kFma = 5,
+       kTiled = 6 };
 
 // ---- KB: a pass of s constant-geometry stages ------------------------------
 
@@ -439,13 +444,18 @@ LIGERO_HD void store_planes(uint32_t* p, uint32_t ls, uint32_t i,
   }
 }
 
+// How the run products read y: a full plane read as x is (kYFull), one
+// element per run read once into registers (kYRow: a per-row scalar, runs
+// of y_div elements), or one run-long row read at the element's offset in
+// its run (kYTile: runs of w elements, element i reading y[i mod w]).
+enum { kYFull = 0, kYRow = 1, kYTile = 2 };
+
 // Thread t of CTA `cta` of KE mont_mul (kMode kMont: x*y*2^-256 mod p),
 // mulmod (kMulmod: x*y mod p) or mulmod_fma (kFma: z + x*y mod p, as the
 // reference's addmod(acc, mulmod(x, y))), by field.cuh's carry-chain
-// products.  kRow: y holds one element per run (a per-row scalar, runs of
-// y_div elements), read once into registers; else y is a full plane, read
-// as x is.  z (kFma only) is a full plane, read as x is after the product.
-template <int kMode, bool kRow, int V>
+// products, y read as kY says.  z (kFma only) is a full plane, read as x
+// is after the product.
+template <int kMode, int kY, int V>
 LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
                               const uint32_t* y, uint32_t y_ls,
                               const uint32_t* z, uint32_t z_ls,
@@ -454,6 +464,7 @@ LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
   const uint32_t run = cta / g.chunks, c = cta - run * g.chunks;
   const uint32_t start = run * g.len;
   const uint32_t end = g.n - start < g.len ? g.n : start + g.len;
+  constexpr bool kRow = kY == kYRow;
   uint32_t s[8];
   if (kRow) {
 #pragma unroll
@@ -464,7 +475,8 @@ LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
        i += step) {
     uint32_t a[V][8], b[V][8], r[V][8];
     load_planes<V>(x, x_ls, i, a);
-    if (!kRow) load_planes<V>(y, y_ls, i, b);
+    if (kY == kYFull) load_planes<V>(y, y_ls, i, b);
+    if (kY == kYTile) load_planes<V>(y, y_ls, i - start, b);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       if (kMode == kMont)
@@ -581,14 +593,14 @@ mont_scalar_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
     mont_scalar_at(x, x_ls, s, out, n, i);
 }
 
-template <int kMode, bool kRow, bool kVec>
+template <int kMode, int kY, bool kVec>
 __global__ void __launch_bounds__(kRunThreads, LIGERO_RUN_MIN_BLOCKS)
 run_product_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
                    const uint32_t* __restrict__ y, uint32_t y_ls,
                    const uint32_t* __restrict__ z, uint32_t z_ls,
                    uint32_t* __restrict__ out, RunGeom g) {
-  run_product_at<kMode, kRow, kVec ? 4 : 1>(x, x_ls, y, y_ls, z, z_ls, out,
-                                            g, blockIdx.x, threadIdx.x);
+  run_product_at<kMode, kY, kVec ? 4 : 1>(x, x_ls, y, y_ls, z, z_ls, out, g,
+                                          blockIdx.x, threadIdx.x);
 }
 
 template <bool kVec>
@@ -605,30 +617,39 @@ inline bool aligned16(const void* p) {
   return (unsigned long long)p % 16 == 0;
 }
 
-// KE mont_mul or mulmod (kMode) over n elements: y one element per run
-// of y_div > 1 elements (read once per thread), or a full plane.  16-byte
-// accesses where run_vec allows them.
-template <int kMode>
-void launch_product(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
-                    uint32_t y_ls, uint32_t y_div, uint32_t* out, uint32_t n,
-                    cudaStream_t s) {
-  const bool row = y_div > 1u;
-  const bool vec = run_vec(n, x_ls, aligned16(x), aligned16(out), row,
-                           y_div, y_ls, aligned16(y));
-  const RunGeom g = run_geom(n, row ? y_div : n, vec);
+template <int kMode, int kY>
+void launch_runs(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                 uint32_t y_ls, uint32_t* out, const RunGeom& g,
+                 cudaStream_t s) {
   const unsigned grid = run_ctas(g);
-  if (row && vec)
-    run_product_kernel<kMode, true, true><<<grid, kRunThreads, 0, s>>>(
-        x, x_ls, y, y_ls, nullptr, 0u, out, g);
-  else if (row)
-    run_product_kernel<kMode, true, false><<<grid, kRunThreads, 0, s>>>(
-        x, x_ls, y, y_ls, nullptr, 0u, out, g);
-  else if (vec)
-    run_product_kernel<kMode, false, true><<<grid, kRunThreads, 0, s>>>(
+  if (g.vec)
+    run_product_kernel<kMode, kY, true><<<grid, kRunThreads, 0, s>>>(
         x, x_ls, y, y_ls, nullptr, 0u, out, g);
   else
-    run_product_kernel<kMode, false, false><<<grid, kRunThreads, 0, s>>>(
+    run_product_kernel<kMode, kY, false><<<grid, kRunThreads, 0, s>>>(
         x, x_ls, y, y_ls, nullptr, 0u, out, g);
+}
+
+// KE mont_mul or mulmod (kMode) over n elements: y one element per run
+// of y_div > 1 elements (read once per thread), or a full plane; or
+// (tiled, mont_mul only) one row of y_div elements read at i mod y_div.
+// 16-byte accesses where run_vec allows them (tiled: also y_div, the run
+// length, a multiple of 4).
+template <int kMode>
+void launch_product(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                    uint32_t y_ls, uint32_t y_div, bool tiled, uint32_t* out,
+                    uint32_t n, cudaStream_t s) {
+  const bool row = !tiled && y_div > 1u;
+  const bool vec = run_vec(n, x_ls, aligned16(x), aligned16(out), row,
+                           y_div, y_ls, aligned16(y)) &&
+                   (!tiled || y_div % 4u == 0);
+  const RunGeom g = run_geom(n, row || tiled ? y_div : n, vec);
+  if (tiled)
+    launch_runs<kMode, kYTile>(x, x_ls, y, y_ls, out, g, s);
+  else if (row)
+    launch_runs<kMode, kYRow>(x, x_ls, y, y_ls, out, g, s);
+  else
+    launch_runs<kMode, kYFull>(x, x_ls, y, y_ls, out, g, s);
 }
 
 // KE mulmod_fma (z + x*y) over n elements on the same geometry, y as in
@@ -645,10 +666,10 @@ inline void launch_fma(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
   const RunGeom g = run_geom(n, row ? y_div : n, false);
   const unsigned grid = run_ctas(g);
   if (row)
-    run_product_kernel<kFma, true, false><<<grid, kRunThreads, 0, s>>>(
+    run_product_kernel<kFma, kYRow, false><<<grid, kRunThreads, 0, s>>>(
         x, x_ls, y, y_ls, z, z_ls, out, g);
   else
-    run_product_kernel<kFma, false, false><<<grid, kRunThreads, 0, s>>>(
+    run_product_kernel<kFma, kYFull, false><<<grid, kRunThreads, 0, s>>>(
         x, x_ls, y, y_ls, z, z_ls, out, g);
 }
 
@@ -703,19 +724,22 @@ extern "C" int ligero_planar_pass(const void* x, const void* tw, void* y,
 
 // Element-wise planar op (KE).  x: 8 planes of n words at limb stride
 // x_ls; y: planes at limb stride y_ls, element i reading y[i / y_div]
-// (mode 4 reads element 0 only); z: mode 5's addend, planes of n words at
-// limb stride z_ls (ignored, may be null, in the other modes); out: (8, n)
-// contiguous, not aliasing x, y or z.  mode 0 addmod, 1 submod, 2 mont_mul,
-// 3 mulmod, 4 mont_scalar, 5 mulmod_fma (z + x*y).
+// (mode 4 reads element 0 only; mode 6 reads y[i mod y_div], y_ls >=
+// y_div); z: mode 5's addend, planes of n words at limb stride z_ls
+// (ignored, may be null, in the other modes); out: (8, n) contiguous, not
+// aliasing x, y or z.  mode 0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4
+// mont_scalar, 5 mulmod_fma (z + x*y), 6 mont_mul with y tiled.
 // Every plane offset must stay below 2^32.  Returns cudaGetLastError().
 extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
                                      const void* y, long long y_ls,
                                      long long y_div, const void* z,
                                      long long z_ls, void* out, long long n,
                                      int mode, void* stream) {
-  if (n < 0 || x_ls < n || y_ls < 0 || y_div < 1 || mode < 0 || mode > 5 ||
+  const bool tiled = mode == ligero_pl::kTiled;
+  if (n < 0 || x_ls < n || y_ls < 0 || y_div < 1 || mode < 0 || mode > 6 ||
       7 * x_ls + n >= (1ll << 32) || 8 * n >= (1ll << 32) ||
-      7 * y_ls + (n + y_div - 1) / y_div >= (1ll << 32))
+      7 * y_ls + (tiled ? y_div : (n + y_div - 1) / y_div) >= (1ll << 32) ||
+      (tiled && y_ls < y_div))
     return (int)cudaErrorInvalidValue;
   if (mode == ligero_pl::kFma &&
       (z == nullptr || z_ls < n || 7 * z_ls + n >= (1ll << 32)))
@@ -741,12 +765,16 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
           xp, xl, yp, yl, yd, op, nn);
       break;
     case ligero_pl::kMont:
-      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, op,
-                                                  nn, s);
+      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, false,
+                                                  op, nn, s);
+      break;
+    case ligero_pl::kTiled:
+      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, true,
+                                                  op, nn, s);
       break;
     case ligero_pl::kMulmod:
-      ligero_pl::launch_product<ligero_pl::kMulmod>(xp, xl, yp, yl, yd, op,
-                                                    nn, s);
+      ligero_pl::launch_product<ligero_pl::kMulmod>(xp, xl, yp, yl, yd,
+                                                    false, op, nn, s);
       break;
     case ligero_pl::kFma:
       ligero_pl::launch_fma(xp, xl, yp, yl, yd, zp, zl, op, nn, s);

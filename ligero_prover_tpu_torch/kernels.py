@@ -9,7 +9,10 @@ unchanged one is loaded from ``build/`` without compiling.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
-into an exception.
+into an exception.  The wrappers call them through :func:`launch`, which
+makes the tensors' card the current device for the call: a ``<<<>>>``
+launch and ``cudaFuncSetAttribute`` act on the current device, not on the
+device of the stream they are given.
 """
 
 from __future__ import annotations
@@ -148,3 +151,18 @@ def check(rc: int, name: str):
 def stream_handle(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, name: str, device, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream
+    of `device`, with `device` the current CUDA device (switched to for the
+    call only when another card is current), and raise (naming the wrapper
+    `name`) if it returns an error."""
+    import torch
+    fn = getattr(lib(), entry)
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream_handle(device))
+    check(rc, name)

@@ -3,9 +3,10 @@
 of s constant-geometry butterfly stages, ``butterfly_dit_pass``/
 ``butterfly_dif_pass``; ``butterfly_dit``/``butterfly_dif`` are its
 one-stage case) and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
-``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``, and
-``quad_terms_planar``: the quadratic test's terms, read from the encoded
-batch by row index).
+``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``,
+``mont_mul_tiled_planar``: mont_mul by one row tiled over the first
+operand, the sharded encode's coset twist, and ``quad_terms_planar``: the
+quadratic test's terms, read from the encoded batch by row index).
 
 Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
 (``_k_mont_mul``/``_k_mulmod`` :260,264 through ``mont_mul_aos`` /
@@ -61,12 +62,15 @@ PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
 FMA = "mulmod_fma_planar"     # KE's three-operand mode: acc + x*y
 FMA_MODE = 5
+TILED = "mont_mul_tiled_planar"   # KE mont_mul, y one row tiled over x
+TILED_MODE = 6
+KE_MODE = {**PLANAR_MODE, FMA: FMA_MODE, TILED: TILED_MODE}
 QUAD = "quad_terms_planar"    # KE mulmod around the check: rows by index
 STAGES = ("butterfly_dit", "butterfly_dif")   # KB: counted once per pass
 MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 #                         shared-memory tile (csrc/planar.cu, kLog2Tile)
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
-                                 *PLANAR_MODE, FMA, QUAD)}
+                                 *PLANAR_MODE, FMA, TILED, QUAD)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
 
@@ -194,10 +198,8 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         xt = x.expand(shape).reshape(-1, NLIMB).contiguous()
     if yt is None:
         yt = y.expand(shape).reshape(-1, NLIMB).contiguous()
-    rc = kernels.lib().ligero_mont_mul(
-        xt.data_ptr(), yt.data_ptr(), out.data_ptr(), n, yt.shape[0],
-        MODE[name], kernels.stream_handle(x.device))
-    kernels.check(rc, name)
+    kernels.launch("ligero_mont_mul", name, x.device, xt.data_ptr(),
+                   yt.data_ptr(), out.data_ptr(), n, yt.shape[0], MODE[name])
     LAUNCHES[name] += 1
     return out
 
@@ -266,6 +268,25 @@ def mont_mul_scalar_planar_plain(x, s):
     element."""
     PLAIN_CALLS["mont_mul_scalar_planar"][x.device.type] += 1
     return _on_planes(_mont_plain, x, _scalar_planes(s, x.dim()))
+
+
+def _tile_row(x, y):
+    """y, one row of w = x.shape[-1] elements, as (8, 1, ..., 1, w)
+    broadcasting over x (8, ..., w); raises if y holds another count."""
+    w = x.shape[-1] if x.dim() > 1 else 0
+    if x.dim() < 2 or y.shape[0] != NLIMB or y.numel() != NLIMB * w:
+        raise ValueError(f"{TILED}: y {tuple(y.shape)} must be one row of "
+                         f"the {w} elements of x's last axis, x "
+                         f"{tuple(x.shape)}")
+    return y.reshape((NLIMB,) + (1,) * (x.dim() - 2) + (w,))
+
+
+def mont_mul_tiled_planar_plain(x, y):
+    """Plain version of KE mont_mul's tiled mode: x (8, ..., w) times y,
+    one row of w elements ((8, w) or (8, 1, w)), element i of x's last
+    axis by y's element i: x*y*2^-256 mod p."""
+    PLAIN_CALLS[TILED][x.device.type] += 1
+    return _on_planes(_mont_plain, x, _tile_row(x, y))
 
 
 def mulmod_fma_planar_plain(acc, x, y):
@@ -384,6 +405,10 @@ def eltwise_args(name: str, x: torch.Tensor, y: torch.Tensor):
     _check_operands(name, x, y)
     x, x_ls = _with_plane_stride(x)
     n = x[0].numel()
+    if name == TILED:
+        w = x.shape[-1]
+        y, y_ls = _with_plane_stride(_tile_row(x, y).reshape(NLIMB, w))
+        return x, x_ls, y, y_ls, w, n
     if name == "mont_mul_scalar_planar":
         if y.numel() != NLIMB:
             raise ValueError(f"{name}: the scalar must be 8 limbs, got "
@@ -397,7 +422,7 @@ def eltwise_args(name: str, x: torch.Tensor, y: torch.Tensor):
 def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
              acc: torch.Tensor | None = None) -> torch.Tensor:
     x, x_ls, y, y_ls, y_div, n = eltwise_args(name, x, y)
-    z_ptr, z_ls, mode = None, 0, PLANAR_MODE.get(name, FMA_MODE)
+    z_ptr, z_ls, mode = None, 0, KE_MODE[name]
     if acc is not None:
         _check_operands(name, x, acc)
         if acc.shape != x.shape:
@@ -406,10 +431,9 @@ def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
         acc, z_ls = _with_plane_stride(acc)
         z_ptr = acc.data_ptr()
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    rc = kernels.lib().ligero_planar_eltwise(
-        x.data_ptr(), x_ls, y.data_ptr(), y_ls, y_div, z_ptr, z_ls,
-        out.data_ptr(), n, mode, kernels.stream_handle(x.device))
-    kernels.check(rc, name)
+    kernels.launch("ligero_planar_eltwise", name, x.device, x.data_ptr(),
+                   x_ls, y.data_ptr(), y_ls, y_div, z_ptr, z_ls,
+                   out.data_ptr(), n, mode)
     LAUNCHES[name] += 1
     return out
 
@@ -455,11 +479,9 @@ def _quad_terms(e: torch.Tensor, tri: np.ndarray,
     idx = torch.from_numpy(np.concatenate([tri.ravel(), pair.ravel()])) \
         .to(e.device, non_blocking=True)
     base = idx.data_ptr()
-    rc = kernels.lib().ligero_planar_quad_terms(
-        e.data_ptr(), e_ls, b_, n, base if t_ else None, t_,
-        base + 12 * t_ if p_ else None, p_, out.data_ptr(),
-        kernels.stream_handle(e.device))
-    kernels.check(rc, QUAD)
+    kernels.launch("ligero_planar_quad_terms", QUAD, e.device,
+                   e.data_ptr(), e_ls, b_, n, base if t_ else None, t_,
+                   base + 12 * t_ if p_ else None, p_, out.data_ptr())
     LAUNCHES[QUAD] += 1
     return out
 
@@ -493,10 +515,9 @@ def _pass(name: str, x: torch.Tensor, tws: torch.Tensor, t0: int, s: int,
         raise ValueError(f"{name}: `out` must be a contiguous int32 "
                          f"(8, {b_}, {n}) tensor on {x.device}, apart "
                          f"from x")
-    rc = kernels.lib().ligero_planar_pass(
-        x.data_ptr(), tws[t0].data_ptr(), out.data_ptr(), b_, log2n, w, s,
-        int(dit), kernels.stream_handle(x.device))
-    kernels.check(rc, name)
+    kernels.launch("ligero_planar_pass", name, x.device, x.data_ptr(),
+                   tws[t0].data_ptr(), out.data_ptr(), b_, log2n, w, s,
+                   int(dit))
     LAUNCHES[name] += 1
     return out
 
@@ -572,6 +593,16 @@ def mulmod_planar(x, y):
     if _on_cpu(x, y):
         return mulmod_planar_plain(x, y)
     return _eltwise("mulmod_planar", x, y)
+
+
+def mont_mul_tiled_planar(x, y):
+    """KE mont_mul, tiled: x (8, ..., w) times y, one row of w elements
+    ((8, w) or (8, 1, w)), element i of x's last axis by y's element i:
+    x*y*2^-256 mod p, one launch over every row of x."""
+    _tile_row(x, y)
+    if _on_cpu(x, y):
+        return mont_mul_tiled_planar_plain(x, y)
+    return _eltwise(TILED, x, y)
 
 
 def quad_terms_planar(e, tri_idx, pair_idx):

@@ -194,10 +194,9 @@ def _renorm(name: str, slots: torch.Tensor, tw: torch.Tensor | None):
         tw_ptr, tw_ls = tw.data_ptr(), max(tw[0].numel(), 1)
     out = torch.empty((NLIMB,) + slots.shape[1:], dtype=torch.int32,
                       device=slots.device)
-    rc = kernels.lib().ligero_renorm(
-        slots.data_ptr(), tw_ptr, tw_ls, tw_lbc, tw_lc, out.data_ptr(), x,
-        RENORM_MODE[name], kernels.stream_handle(slots.device))
-    kernels.check(rc, name)
+    kernels.launch("ligero_renorm", name, slots.device, slots.data_ptr(),
+                   tw_ptr, tw_ls, tw_lbc, tw_lc, out.data_ptr(), x,
+                   RENORM_MODE[name])
     LAUNCHES[name] += 1
     return out
 
@@ -236,10 +235,8 @@ def digitize(x):
     _check("digitize", x, NLIMB)
     xa, ls, es, n = digitize_args(x)
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    rc = kernels.lib().ligero_digitize(
-        xa.data_ptr(), ls, es, out.data_ptr(), n,
-        kernels.stream_handle(x.device))
-    kernels.check(rc, "digitize")
+    kernels.launch("ligero_digitize", "digitize", x.device, xa.data_ptr(),
+                   ls, es, out.data_ptr(), n)
     LAUNCHES["digitize"] += 1
     return out
 

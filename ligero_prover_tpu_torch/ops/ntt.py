@@ -35,11 +35,22 @@ the KR renormalisation kernels), selected by :data:`USE_MXU` and fed by
 484-501``).  2k mask rows, decode and the verifier stay on the butterfly
 paths.
 
+The column-sharded executor (``parallel/mesh.py``) encodes with the coset
+functions: shard d of D owns the codeword columns j = d + D*t (t < m =
+n/D), which are the evaluations of the row's polynomial on a coset of the
+subgroup of order m, so each shard computes its own columns with no
+exchange (:func:`encode_rows_coset_planar_core`,
+:func:`encode_rows_coset`, tables from :func:`coset_tables`).
+
 Mathematical contract:
   encode    = NTT_n(zero_extend(iNTT_k(row)))
   encode_2k = NTT_n(zero_extend(iNTT_2k(mask_row)))
   decode    = NTT_k(fold_k(iNTT_n(codeword))), coefficients [k, n) passed
               through for the degree check.
+  coset     = with c = iNTT_w(row)/w (w = k or 2k) and root r = w_n^D:
+              encode[d + D*t] = NTT_m(fold_m(c * w_n^(i*d)))[t], where
+              fold_m(x)[i0] = sum over i = i0 (mod m) of x[i] (m < w), or
+              zero_extend to m (m > w).
 """
 
 from __future__ import annotations
@@ -249,7 +260,13 @@ def encode_rows_cg_planar_core(rows, dom_msg, dom_n, n: int,
     """Planar encode: (B, w, 8) rows -> (8, B, n) limb-plane codewords
     (iNTT_w by DIF, scale by 1/w, zero-extend, NTT_n by DIT), in KB passes
     of at most `max_pass` stages.  Callers that consume planes (the SHA
-    absorb, the check accumulators) skip the transpose back."""
+    absorb, the check accumulators) skip the transpose back.
+
+    The coset encode at D = 1 gives the same limbs; this path stays for
+    the single device because its one scalar (KE mont_scalar) is faster
+    than the coset encode's tiled twist at the same (8, 16, 8192) call
+    (chip_smoke phase 3, PERF.md §6), and the int8 engine replaces it for
+    the k-width rows."""
     w = rows.shape[1]
     x = _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
                             dom_msg["cg_inv_pl"], max_pass)
@@ -341,3 +358,109 @@ class RSCodec:
 
     def decode(self, codewords):
         return decode_rows(codewords, self.dom_k, self.dom_n, self.k)
+
+
+# ---- coset encode: one shard's columns of the codeword -------------------
+
+_COSET_DOMAINS: dict = {}      # (k, n, D, device) -> m-point domain tables
+_COSET_TABLES: dict = {}       # (k, n, D, d, device) -> coset_tables()
+
+
+def coset_tables(k: int, n: int, D: int, d: int, device=None) -> dict:
+    """Tables of shard d of D for the coset encode of k- and 2k-width rows
+    (cached per (k, n, D, d, device)):
+
+    * ``m``: the shard's n/D columns j = d + D*t, t < m;
+    * ``dom``: :func:`build_domain_tables` of the m-point domain with root
+      w_n^D.  It must be that power of the codec's n-point root: the
+      codec's own roots of other orders (``F.generate_omegas``) are not
+      powers of one another, and tables of a fresh root of order m give
+      other columns;
+    * ``twist``: per width w, the (8, w) limb planes at position pos of
+      w^-1 * w_n^(d * bitrev_w(pos)) in Montgomery form, which scale the
+      bit-reversed coefficients of iNTT_w by 1/w and twist them onto the
+      coset in one product; ``twist_aos`` the same as (w, 8)."""
+    device = torch.device(device if device is not None else "cpu")
+    key = (k, n, D, d, str(device))
+    if key in _COSET_TABLES:
+        return _COSET_TABLES[key]
+    if D < 1 or D & (D - 1) or n % D or not 0 <= d < D or n // D < 2:
+        raise ValueError(f"no coset {d} of {D} shards over n={n}")
+    p = F.MODULUS
+    w_n = F.generate_omegas(k, n)[2]
+    m = n // D
+    dom_key = key[:3] + key[4:]
+    if dom_key not in _COSET_DOMAINS:
+        _COSET_DOMAINS[dom_key] = build_domain_tables(m, pow(w_n, D, p),
+                                                      device)
+    step = pow(w_n, d, p)
+    twist, twist_aos = {}, {}
+    for w in (k, 2 * k):
+        acc = pow(w, p - 2, p) * F.R % p
+        powers = [0] * w
+        for i in range(w):
+            powers[i] = acc
+            acc = acc * step % p
+        limbs = ints_to_limbs(powers)[_bitrev(w)]
+        twist_aos[w] = fo.to_torch(np.ascontiguousarray(limbs), device)
+        twist[w] = twist_aos[w].T.contiguous()
+    tabs = {"m": m, "dom": _COSET_DOMAINS[dom_key], "twist": twist,
+            "twist_aos": twist_aos}
+    _COSET_TABLES[key] = tabs
+    return tabs
+
+
+def coset_coeffs(rows, dom_msg, use_planar: bool):
+    """iNTT_w of (B, w, 8) rows by DIF, not scaled: the bit-reversed
+    coefficients (times w) that every shard's coset encode takes, as
+    (8, B, w) limb planes (planar) or (B, w, 8) (AoS)."""
+    if use_planar:
+        return _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
+                                   dom_msg["cg_inv_pl"])
+    return _cg_dif_scan(rows, dom_msg["cg_inv"])
+
+
+def _first_stage(m: int, w: int) -> int:
+    """DIT stages that the zero-extension of w to m makes identities."""
+    return (m // w).bit_length() - 1 if m > w else 0
+
+
+def encode_rows_coset_planar_core(coeffs, tabs: dict,
+                                  max_pass: int = LARGEST_PASS):
+    """One shard's columns of the planar encode: coeffs (8, B, w) from
+    :func:`coset_coeffs` -> (8, B, m), column t being codeword column
+    d + D*t, for the shard whose :func:`coset_tables` are `tabs`.
+
+    One KE launch twists and scales (``mont_mul_tiled_planar`` by the
+    (8, w) twist table); for m < w the w/m bit-reversed coefficients
+    i0 + m*q of one fold sit in adjacent lanes, summed by pairwise KE
+    adds; then the KB DIT passes of the m-point domain, which read a
+    narrower input (m > w) tiled, the zero-extension."""
+    w = coeffs.shape[2]
+    m = tabs["m"]
+    x = fm.mont_mul_tiled_planar(coeffs, tabs["twist"][w])
+    if m < w:
+        v = x.reshape(NLIMB, x.shape[1], m, w // m)
+        while v.shape[3] > 1:
+            h = v.shape[3] // 2
+            v = fm.addmod_planar(v[..., :h], v[..., h:])
+        x = v.reshape(NLIMB, x.shape[1], m)
+    return _cg_dit_scan_planar(x, tabs["dom"]["cg_fwd_pl"],
+                               _first_stage(m, w), max_pass)
+
+
+def encode_rows_coset(coeffs, tabs: dict):
+    """AoS twin of :func:`encode_rows_coset_planar_core`: coeffs
+    (B, w, 8) -> (B, m, 8)."""
+    b_, w = coeffs.shape[0], coeffs.shape[1]
+    m = tabs["m"]
+    x = fo.mont_mul(coeffs, tabs["twist_aos"][w])
+    if m < w:
+        v = x.reshape(b_, m, w // m, NLIMB)
+        while v.shape[2] > 1:
+            h = v.shape[2] // 2
+            v = fo.addmod(v[:, :, :h], v[:, :, h:])
+        x = v.reshape(b_, m, NLIMB)
+    elif m > w:
+        x = x.repeat(1, m // w, 1)
+    return _cg_dit_scan(x, tabs["dom"]["cg_fwd"], _first_stage(m, w))

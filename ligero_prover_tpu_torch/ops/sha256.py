@@ -169,12 +169,10 @@ def _launch(name, state, pending, has_pending, rows, valid_count, planar):
     new_state = torch.empty_like(state)
     new_pending = torch.empty_like(pending)
     hp = int(bool(has_pending))
-    rc = kernels.lib().ligero_sha256_absorb(
-        state.data_ptr(), pending.data_ptr(), rows.data_ptr(),
-        new_state.data_ptr(), new_pending.data_ptr(), cols, bsz, hp,
-        int(valid_count), int(planar), tile_for(cols),
-        kernels.stream_handle(rows.device))
-    kernels.check(rc, name)
+    kernels.launch("ligero_sha256_absorb", name, rows.device,
+                   state.data_ptr(), pending.data_ptr(), rows.data_ptr(),
+                   new_state.data_ptr(), new_pending.data_ptr(), cols, bsz,
+                   hp, int(valid_count), int(planar), tile_for(cols))
     LAUNCHES[name] += 1
     return new_state, new_pending, (int(valid_count) + hp) % 2 == 1
 

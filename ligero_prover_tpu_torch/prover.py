@@ -11,7 +11,8 @@ three times, exactly like the reference:
 
 with Fiat-Shamir seeds between stages and a final self-check of the
 decoded test codewords.  Port of ``ligero_prover_tpu.prover``: the
-pipelines run on a :class:`TorchExecutor` on an explicit device.
+pipelines run on a :class:`TorchExecutor` on an explicit device, or on a
+column-sharded :class:`ShardedExecutor` over a mesh of devices.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from .zkp.executor import TorchExecutor
 from .zkp.context import Stage1Context, Stage2Context, Stage3Context, \
     RowTape
 from .zkp.proof import serialize_proof
+from .parallel.mesh import ShardedExecutor
 
 
 @dataclass
@@ -87,11 +89,17 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
           program_hash: bytes = bytes(32),
           encoding_seed: bytes | None = None,
           executor: TorchExecutor | None = None,
+          mesh=None,
           batch_rows: int = 16,
           device="cuda",
           row_tape: bool = True) -> ProveResult:
     """`device`: where a new executor runs its pipelines (ignored when
     `executor` is given); "cuda" raises when no card is present.
+
+    `mesh`: a ``parallel.mesh.Mesh`` (``make_mesh``): a new executor runs
+    the stage pipelines column-sharded over its devices (ignored when
+    `executor` is given; `device` is then unused); the proof bytes are
+    identical to the single-device prover's.
 
     `row_tape`: spool stage-1 rows to a temp file and replay them in
     stage 3, skipping the third program execution (rows are identical by
@@ -100,7 +108,8 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
     the reference's re-execution behavior exactly."""
     k, l, n = geometry.k, geometry.l, geometry.n
     if executor is None:
-        executor = TorchExecutor(k, n, batch_rows, device)
+        executor = ShardedExecutor(k, n, mesh, batch_rows) \
+            if mesh is not None else TorchExecutor(k, n, batch_rows, device)
     if encoding_seed is None:
         encoding_seed = os.urandom(32)  # prover-private randomness
 

@@ -118,19 +118,18 @@ def _tree_sum_mod_planar(x):
     return x[:, 0]
 
 
-def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
-                       tri_r, pair_idx, pair_r, dom_k, dom_n, n,
-                       rands_zero=False, mxu_tabs=None):
-    """Planar stage-2 pipeline (reference ``executor.py:175-252``): the
-    codewords stay limb planes; each test is one KE launch per op over the
-    whole batch plus one tree sum.
+def _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
+                        pair_idx, pair_r):
+    """Planar stage-2 accumulation (reference ``executor.py:175-252``) of
+    the encoded rows e (8, B, n) and encoded randomness rows r (8, B, n),
+    or r None when the rands are zero: the codewords stay limb planes; each
+    test is one KE launch per op over the whole batch plus one tree sum.
 
     Montgomery prescale: the per-row scalars are taken to s*R by one
     mont_mul with R^2, so each big product is ONE mont_mul
     (x * sR * R^-1 = x*s); the linear test (both operands plain) sums the
     mont_mul products first and scales the (8, n) sum by R once.
     `tri_idx`/`pair_idx` are host arrays: quad-terms checks them there."""
-    e = _encode_planes(rows, dom_k, dom_n, n, mxu_tabs)       # (8, B, n)
     r2 = _r2(e.device)
 
     def scale_r(v):
@@ -144,8 +143,7 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
     prods = fm.mont_mul_planar(e, cr_r[:, :, None])
     code = fm.addmod_planar(planes(code), _tree_sum_mod_planar(prods))
     # linear test: += sum_b e[b] * r[b]  (identity when rands are zero)
-    if not rands_zero:
-        r = _encode_planes(rands, dom_k, dom_n, n, mxu_tabs)
+    if r is not None:
         lin = scale_r(_tree_sum_mod_planar(fm.mont_mul_planar(e, r)))
         linear = fm.addmod_planar(planes(linear), lin).T.contiguous()
     # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms: the
@@ -158,23 +156,30 @@ def _check_body_planar(code, linear, quad, rows, rands, code_rs, tri_idx,
     return code.T.contiguous(), linear, quad.T.contiguous()
 
 
-def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
-                pair_idx, pair_r, dom_k, dom_n, n, use_planar=False,
-                rands_zero=False, mxu_tabs=None):
-    """`rands_zero`: the flush carries only batch rows, which have no
-    linear-test randomness rows; the second encode and the linear
-    accumulation are identities on zeros and are skipped."""
-    if use_planar:
-        return _check_body_planar(code, linear, quad, rows, rands, code_rs,
-                                  tri_idx, tri_r, pair_idx, pair_r, dom_k,
-                                  dom_n, n, rands_zero, mxu_tabs)
-    e = _encode_aos(rows, dom_k, dom_n, n, mxu_tabs)
+def _check_terms_aos(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
+                     pair_idx, pair_r):
+    """AoS twin of :func:`_check_terms_planar`: e and r (B, n, 8), the
+    row indices tensors on e's device."""
     code = _masked_sum(code, fo.mulmod(e, code_rs[:, None, :]))
-    if not rands_zero:
-        r = _encode_aos(rands, dom_k, dom_n, n, mxu_tabs)
+    if r is not None:
         linear = _masked_sum(linear, fo.mulmod(e, r))
     quad = _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r)
     return code, linear, quad
+
+
+def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
+                pair_idx, pair_r, dom_k, dom_n, n, use_planar=False,
+                rands_zero=False, mxu_tabs=None):
+    """Encode the rows (and the rands) and accumulate the three tests.
+    `rands_zero`: the flush carries only batch rows, which have no
+    linear-test randomness rows; the second encode and the linear
+    accumulation are identities on zeros and are skipped."""
+    encode = _encode_planes if use_planar else _encode_aos
+    terms = _check_terms_planar if use_planar else _check_terms_aos
+    e = encode(rows, dom_k, dom_n, n, mxu_tabs)
+    r = None if rands_zero else encode(rands, dom_k, dom_n, n, mxu_tabs)
+    return terms(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
+                 pair_idx, pair_r)
 
 
 def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n,

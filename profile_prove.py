@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Profile the port's prove on one GPU: the planar butterfly path, the AoS
-path and the planar path with the int8 encode engine, side by side.
+path, the planar path with the int8 encode engine and the column-sharded
+prover (4 shards on cuda:(i % cards)), side by side.
 
     python3 profile_prove.py [--rounds 60] [--out build/profile.json]
-                             [--configs planar,aos,planar+mxu] [--walls 0]
+                             [--configs planar,aos,planar+mxu,planar+mesh4]
+                             [--walls 0]
 
-For each configuration of ``ops.ntt.USE_PLANAR`` and ``ops.ntt.USE_MXU`` on
-the vbn254fr guest of ``chip_smoke.make_wat`` at k=8192: one warm-up prove;
+For each configuration of ``ops.ntt.USE_PLANAR``, ``ops.ntt.USE_MXU`` and
+the shard count on the vbn254fr guest of ``chip_smoke.make_wat`` at
+k=8192: one warm-up prove;
 one timed prove (wall and stage seconds, the port's launch counters); one
 prove under ``torch.profiler`` (device kernel time, kernel count, the top
 device ops, the device ms and launches of each of the port's own
@@ -43,8 +46,20 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-CONFIGS = {"planar": (True, False), "aos": (False, False),
-           "planar+mxu": (True, True)}       # name -> (USE_PLANAR, USE_MXU)
+# name -> (USE_PLANAR, USE_MXU, shards: 0 for the single-device executor)
+CONFIGS = {"planar": (True, False, 0), "aos": (False, False, 0),
+           "planar+mxu": (True, True, 0), "planar+mesh4": (True, False, 4)}
+
+
+def _mesh(shards: int):
+    """`shards` shards on cuda:(i % cards), or None for one device."""
+    import torch
+    from ligero_prover_tpu_torch.parallel.mesh import make_mesh
+    if not shards:
+        return None
+    cards = torch.cuda.device_count()
+    return make_mesh([torch.device("cuda", i % cards)
+                      for i in range(shards)])
 
 
 def _by_device_time(events, top: int) -> list:
@@ -81,9 +96,11 @@ def aten_kernels(events) -> dict:
     return out
 
 
-def encode_times(planar: bool, mxu: bool, iters: int = 5) -> dict:
+def encode_times(planar: bool, mxu: bool, shards: int,
+                 iters: int = 5) -> dict:
     """One 16-row k->n encode: median host ms, median CUDA-event ms and
-    its device kernels by name."""
+    its device kernels by name (sharded: the iNTT once and every shard's
+    coset encode)."""
     import numpy as np
     import torch
     from ligero_prover_tpu_torch.field import bn254 as F
@@ -94,7 +111,16 @@ def encode_times(planar: bool, mxu: bool, iters: int = 5) -> dict:
     raw[..., 7] %= F.MODULUS >> 224                   # canonical: < p
     rows = torch.from_numpy(raw.astype(np.uint32).view(np.int32)).cuda()
 
+    mesh = _mesh(shards)
+    cosets = [] if mesh is None else [
+        (dev, ntt.coset_tables(K, 4 * K, mesh.size, d, dev))
+        for d, dev in enumerate(mesh.devices)]
+
     def encode():
+        if cosets:
+            c = ntt.coset_coeffs(rows, codec.dom_k, True)
+            return [ntt.encode_rows_coset_planar_core(c.to(dev), tabs)
+                    for dev, tabs in cosets]
         if mxu:
             return mxu_ntt.encode_rows_mxu_core(rows, codec.mxu_tabs, 4 * K)
         if planar:
@@ -128,11 +154,13 @@ def encode_times(planar: bool, mxu: bool, iters: int = 5) -> dict:
             "encode16_device_ops": _by_device_time(ops, 16)}
 
 
-def _prove(prog, geo):
+def _prove(prog, geo, shards: int):
     import torch
     from ligero_prover_tpu_torch.prover import prove
-    res = prove(prog, geometry=geo, encoding_seed=bytes(32), device="cuda")
-    torch.cuda.synchronize()
+    res = prove(prog, geometry=geo, encoding_seed=bytes(32), device="cuda",
+                mesh=_mesh(shards))
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     if not res.ok:
         raise RuntimeError("prove self-check failed")
     return res
@@ -146,13 +174,13 @@ def profile_config(name: str, rounds: int) -> dict:
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.utils import timer as T
 
-    planar, mxu = CONFIGS[name]
+    planar, mxu, shards = CONFIGS[name]
     geo = RowGeometry(K)
     prog = wat_program(make_wat(rounds))
     out = {"config": name, "rounds": rounds}
     with configuration(planar, mxu):
         def run():
-            return _prove(prog, geo)
+            return _prove(prog, geo, shards)
 
         run()                                             # warm-up
         T.clear_timers()
@@ -201,9 +229,10 @@ def extra_walls(names: list, rounds: int, count: int) -> dict:
     walls = {name: [] for name in names}
     for _ in range(count):
         for name in names:
-            with configuration(*CONFIGS[name]):
+            planar, mxu, shards = CONFIGS[name]
+            with configuration(planar, mxu):
                 t0 = time.perf_counter()
-                _prove(prog, geo)
+                _prove(prog, geo, shards)
                 walls[name].append(time.perf_counter() - t0)
     return walls
 

@@ -83,9 +83,10 @@ extern "C" uint32_t k2_threads(uint32_t n) { return mulmod_threads(n); }
 
 // KE mont_mul, mulmod and mulmod_fma as launch_product runs them: every
 // thread of every CTA of the run geometry (rows of y_div > 1 elements with
-// one y element each, else one run with y a full plane), 4-element units
-// if vec; z is mulmod_fma's addend
-template <int kMode, bool kRow>
+// one y element each, else one run with y a full plane; tiled: rows of
+// y_div elements reading one row y), 4-element units if vec; z is
+// mulmod_fma's addend
+template <int kMode, int kY>
 static void ke_product_runs(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* y, uint32_t y_ls,
                             const uint32_t* z, uint32_t z_ls, uint32_t* out,
@@ -93,11 +94,11 @@ static void ke_product_runs(const uint32_t* x, uint32_t x_ls,
   for (uint32_t c = 0; c < ligero_pl::run_ctas(g); ++c)
     for (uint32_t t = 0; t < ligero_pl::kRunThreads; ++t) {
       if (g.vec)
-        ligero_pl::run_product_at<kMode, kRow, 4>(x, x_ls, y, y_ls, z, z_ls,
-                                                  out, g, c, t);
+        ligero_pl::run_product_at<kMode, kY, 4>(x, x_ls, y, y_ls, z, z_ls,
+                                                out, g, c, t);
       else
-        ligero_pl::run_product_at<kMode, kRow, 1>(x, x_ls, y, y_ls, z, z_ls,
-                                                  out, g, c, t);
+        ligero_pl::run_product_at<kMode, kY, 1>(x, x_ls, y, y_ls, z, z_ls,
+                                                out, g, c, t);
     }
 }
 
@@ -105,29 +106,36 @@ template <int kMode>
 static void ke_product_mode(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* y, uint32_t y_ls, uint32_t y_div,
                             const uint32_t* z, uint32_t z_ls, uint32_t* out,
-                            uint32_t n, int vec) {
-  const bool row = y_div > 1u;
-  const ligero_pl::RunGeom g = ligero_pl::run_geom(n, row ? y_div : n, vec);
-  if (row)
-    ke_product_runs<kMode, true>(x, x_ls, y, y_ls, z, z_ls, out, g);
+                            uint32_t n, int vec, bool tiled) {
+  const bool row = !tiled && y_div > 1u;
+  const ligero_pl::RunGeom g =
+      ligero_pl::run_geom(n, row || tiled ? y_div : n, vec);
+  if (tiled)
+    ke_product_runs<kMode, ligero_pl::kYTile>(x, x_ls, y, y_ls, z, z_ls, out,
+                                              g);
+  else if (row)
+    ke_product_runs<kMode, ligero_pl::kYRow>(x, x_ls, y, y_ls, z, z_ls, out,
+                                             g);
   else
-    ke_product_runs<kMode, false>(x, x_ls, y, y_ls, z, z_ls, out, g);
+    ke_product_runs<kMode, ligero_pl::kYFull>(x, x_ls, y, y_ls, z, z_ls, out,
+                                              g);
 }
 
-// mode: 2 mont_mul, 3 mulmod, 5 mulmod_fma (ligero_planar_eltwise's)
+// mode: 2 mont_mul, 3 mulmod, 5 mulmod_fma, 6 mont_mul tiled
+// (ligero_planar_eltwise's)
 extern "C" void ke_product(const uint32_t* x, uint32_t x_ls,
                            const uint32_t* y, uint32_t y_ls, uint32_t y_div,
                            const uint32_t* z, uint32_t z_ls, uint32_t* out,
                            uint32_t n, int mode, int vec) {
-  if (mode == ligero_pl::kMont)
+  if (mode == ligero_pl::kMont || mode == ligero_pl::kTiled)
     ke_product_mode<ligero_pl::kMont>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
-                                      n, vec);
+                                      n, vec, mode == ligero_pl::kTiled);
   else if (mode == ligero_pl::kMulmod)
     ke_product_mode<ligero_pl::kMulmod>(x, x_ls, y, y_ls, y_div, z, z_ls,
-                                        out, n, vec);
+                                        out, n, vec, false);
   else
     ke_product_mode<ligero_pl::kFma>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
-                                     n, vec);
+                                     n, vec, false);
 }
 
 // whether launch_product moves 16-byte units
@@ -458,13 +466,14 @@ def _strided(planes, ls):
 
 
 # (name, form, vec, n): mulmod_fma in single elements only, the form its
-# launch runs
+# launch runs; mont_mul's tiled mode with its one row of n elements
 KE_PRODUCT_CASES = [
     (name, form, vec, n)
     for name in ("mont_mul_planar", "mulmod_planar", tfm.FMA)
     for form in ("row", "full", "one")
     for vec, n in ((True, 2048), (False, 1030))
-    if not (name == tfm.FMA and vec)]
+    if not (name == tfm.FMA and vec)] + [
+    (tfm.TILED, "tiled", vec, n) for vec, n in ((True, 2048), (False, 1030))]
 
 
 @pytest.mark.parametrize("name,form,vec,n", KE_PRODUCT_CASES)
@@ -475,14 +484,16 @@ def test_ke_product_element_function_matches_plain(run_core, name, form,
     stride: times a per-row scalar (8, 3, 1) read once per thread (the
     check's calls), a full plane (the linear test) or one scalar for all
     (8, 1, 1); 16-byte units (n a multiple of 4) or single elements
-    (mulmod_fma: single elements, as its launch runs it);
+    (mulmod_fma: single elements, as its launch runs it); the tiled
+    mode's one row (8, 1, n) read at each element's offset in its row;
     non-canonical operands with the edge values and carry-heavy limb
     patterns (mulmod_fma: its addend z too, and the first row of x and z
     canonical); against the plain versions."""
     rows = 3
     gen = np.random.default_rng(n + len(form) + len(name))
     x = _wild_rows(gen, rows * n).T.reshape(8, rows, n)
-    yshape = {"row": (rows, 1), "full": (rows, n), "one": (1, 1)}[form]
+    yshape = {"row": (rows, 1), "full": (rows, n), "one": (1, 1),
+              "tiled": (1, n)}[form]
     ycount = int(np.prod(yshape))
     y = _wild_rows(gen, ycount)[::-1].T.reshape((8,) + yshape)
     z = _wild_rows(gen, rows * n)[::-1].T.reshape(8, rows, n)
@@ -492,9 +503,9 @@ def test_ke_product_element_function_matches_plain(run_core, name, form,
     pad = 4 if vec else 3
     xs, ys = _strided(x, rows * n + pad), _strided(y, ycount + pad)
     zs = _strided(z, rows * n + 2 * pad)
-    y_div = {"row": n, "full": 1, "one": rows * n}[form]
+    y_div = {"row": n, "full": 1, "one": rows * n, "tiled": n}[form]
     out = np.zeros((8, rows * n), dtype=np.uint32)
-    mode = tfm.PLANAR_MODE.get(name, tfm.FMA_MODE)
+    mode = tfm.KE_MODE[name]
     run_core.ke_product(xs.ctypes.data, rows * n + pad, ys.ctypes.data,
                         ycount + pad, y_div, zs.ctypes.data,
                         rows * n + 2 * pad, out.ctypes.data, rows * n, mode,
