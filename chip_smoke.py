@@ -29,9 +29,13 @@ proof must equal the butterfly path's byte for byte, and (phase 8) the
 column-sharded prover of ``parallel/mesh.py`` with 4 shards on
 cuda:(i % cards) at full depth, whose proof must equal it too (its coset
 twist is KE mont_mul's tiled mode, checked and timed in phase 3 at the
-sharded path's calls).  Each run counts the kernel launches it makes, from
-zero.  Any failure raises and exits
-non-zero; without a CUDA device it exits non-zero before doing anything.
+sharded path's calls), and (phase 9) the same prover over a
+``torch.distributed`` process group, one process per rank: 4 ranks of one
+card each over NCCL on a host with 4 cards, else 2 ranks of 2 shards each
+on cuda:0 over gloo (``mp_layout``), every rank's proof equal to phase
+5's.  Each run counts the kernel launches it makes, from zero.  Any
+failure raises and exits non-zero; without a CUDA device it exits non-zero
+before doing anything.
 
 The last two lines of output are the kernel table as JSON and the result
 line ``{"ok": true, "device": {...}}``.
@@ -1596,8 +1600,168 @@ def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
     return launches
 
 
+MP_RANK_TIMEOUT = 600       # seconds a phase-9 rank may take, start-up included
+MP_COLLECTIVE_TIMEOUT = 300  # the process group's limit per collective
+
+
+def mp_layout(cards: int) -> tuple[int, int, str]:
+    """(P ranks, L shards a rank, backend) of phase 9: one card a rank over
+    NCCL where the host has SHARDS cards, else two ranks sharing cuda:0
+    over gloo (NCCL refuses two ranks on one card), D = SHARDS."""
+    if cards >= SHARDS:
+        return SHARDS, 1, "nccl"
+    return 2, SHARDS // 2, "gloo"
+
+
+def mp_rank(cfg: dict) -> int:
+    """One rank of phase 9 (``chip_smoke.py --mp-rank '<json>'``): join the
+    process group through the parent's store, prove make_wat(4) at k=256
+    through the mesh (start-up: the CUDA context, the communicators, the
+    kernels' first launches), then make_wat(400) at k=8192 with the counts
+    set to 0 just before and read just after, and print one ``phase 9
+    rank`` JSON line."""
+    import datetime
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha, \
+        mxu_renorm as mr
+    from ligero_prover_tpu_torch.parallel.mesh import make_mesh
+    from ligero_prover_tpu_torch.params import RowGeometry
+    from ligero_prover_tpu_torch.prover import prove
+    from ligero_prover_tpu_torch.utils import timer as T
+
+    rank, world, local = cfg["rank"], cfg["world"], cfg["local"]
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    cards = [rank] if cfg["backend"] == "nccl" else [0] * local
+    devices = [torch.device("cuda", i) for i in cards]
+    torch.cuda.set_device(devices[0])
+    timeout = datetime.timedelta(seconds=MP_COLLECTIVE_TIMEOUT)
+    store = dist.TCPStore("127.0.0.1", cfg["port"], world, is_master=False,
+                          timeout=timeout)
+    dist.init_process_group(cfg["backend"], store=store, rank=rank,
+                            world_size=world, timeout=timeout)
+    try:
+        kernels.lib()               # the parent's build, loaded
+        mesh = make_mesh(devices)
+        with configuration(True):
+            warm = prove(wat_program(make_wat(4)),
+                         geometry=RowGeometry(SMALL_K), mesh=mesh,
+                         batch_rows=8, encoding_seed=bytes(32))
+            require(warm.ok, "phase 9 start-up prove")
+            prog = wat_program(make_wat(FULL_ROUNDS))
+            uniq = sorted(set(devices), key=str)
+            for dev in uniq:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = {str(dev): torch.cuda.memory_allocated(dev)
+                      for dev in uniq}
+            T.clear_timers()
+            mesh.reset_counts()
+            for module in (fm, sha, mr):
+                module.reset_counts()
+            t0 = time.perf_counter()
+            res = prove(prog, geometry=RowGeometry(FULL_K),
+                        encoding_seed=bytes(32), mesh=mesh)
+            for dev in uniq:
+                torch.cuda.synchronize(dev)
+            prove_s = time.perf_counter() - t0
+            launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+            plain = plain_on_cuda()
+            collectives = dict(mesh.counts)
+            peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
+                     - before[str(dev)] for dev in uniq}
+            stages = {s: round(T.get_timer(s), 3)
+                      for s in ("stage1", "stage2", "stage3")}
+    finally:
+        dist.destroy_process_group()
+    imported = [m for m in sys.modules if m.split(".")[0]
+                in ("jax", "ligero_prover_tpu")]
+    require(not imported, f"phase 9 rank {rank} imported {imported[:5]}")
+    log("phase 9 rank " + json.dumps({
+        "rank": rank, "world": world, "backend": cfg["backend"],
+        "shards": list(mesh.local_shards),
+        "devices": [str(d) for d in devices], "ok": res.ok,
+        "proof_sha256": hashlib.sha256(res.proof).hexdigest(),
+        "rows": res.num_rows, "prove_s": prove_s,
+        "rows_per_s": res.num_rows / prove_s, "stages_s": stages,
+        "prove_peak_above_before_per_device": peaks,
+        "allocated_before": before, "launches": launches,
+        "launches_per_row": sum(launches.values()) / res.num_rows,
+        "plain_calls_on_cuda": {k: v for k, v in plain.items() if v},
+        "collectives": collectives}))
+    return 0
+
+
+def prove_multiprocess(proof: bytes) -> list[dict]:
+    """Phase 9: the column-sharded prover over a process group, one process
+    per rank (``mp_layout``), each proving make_wat(400) at k=8192 through
+    ``prove(mesh=make_mesh(...))`` with its own shards.  Every rank must
+    exit 0 within MP_RANK_TIMEOUT (a rank still running then is killed),
+    prove phase 5's `proof` byte for byte, launch every kernel of the
+    sharded path and run no plain version on a CUDA tensor.  Returns each
+    rank's line."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    world, local, backend = mp_layout(torch.cuda.device_count())
+    # the ranks meet through this store, bound at a port the system picks
+    # and held until they end
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                          wait_for_workers=False)
+    port = store.port
+    env = dict(os.environ, LIGERO_PROOF_TIMESTAMP="1700000000")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    log(f"phase 9: {world} ranks x {local} shard(s) over {backend}, "
+        f"D = {world * local}, tcp://127.0.0.1:{port}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mp-rank",
+         json.dumps({"rank": r, "world": world, "local": local,
+                     "backend": backend, "port": port})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            left = t0 + MP_RANK_TIMEOUT - time.perf_counter()
+            outs.append(p.communicate(timeout=max(left, 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        found = [ln for ln in out.splitlines()
+                 if ln.startswith("phase 9 rank ")]
+        require(p.returncode == 0 and found,
+                f"phase 9 rank {r} exited {p.returncode}:\n{out[-4000:]}"
+                f"\n{err[-4000:]}")
+        log(found[-1])
+        lines.append(json.loads(found[-1][len("phase 9 rank "):]))
+    want = hashlib.sha256(proof).hexdigest()
+    log(f"phase 9: {world} ranks in {time.perf_counter() - t0:.1f}s; "
+        f"every proof equal to phase 5's: "
+        f"{all(ln['proof_sha256'] == want for ln in lines)}")
+    for ln in lines:
+        r = ln["rank"]
+        require(ln["ok"], f"phase 9 rank {r} self-check")
+        require(ln["proof_sha256"] == want,
+                f"phase 9 rank {r}'s proof equals phase 5's")
+        require(all(ln["launches"][k] > 0 for k in SHARDED_KERNELS),
+                f"every kernel of the sharded path launched on rank {r}: "
+                f"{ln['launches']}")
+        require(all(v == 0 for v in ln["plain_calls_on_cuda"].values()),
+                f"no plain version ran on CUDA tensors on rank {r}")
+    return lines
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) > 2 and sys.argv[1] == "--mp-rank":
+        return mp_rank(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -1618,7 +1782,9 @@ def main() -> int:
     log(smi[0])
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
-        f"{torch.cuda.device_count()} max SM clock {clk} MHz")
+        f"{torch.cuda.device_count()} max SM clock {clk} MHz; phase 9: "
+        "{} ranks x {} shard(s) over {}".format(
+            *mp_layout(torch.cuda.device_count())))
 
     t0 = time.perf_counter()
     kernels.lib()
@@ -1639,6 +1805,7 @@ def main() -> int:
     aos, _ = prove_full(device, "phase 6", False, AOS_ROUNDS)
     mxu = prove_mxu(device, launches, proof)
     sharded = prove_sharded(device, proof, small["bit_decompose"])
+    ranks = prove_multiprocess(proof)
     launches.update({k: aos[k] for k in AOS_KERNELS})
     launches.update({k: mxu[k] for k in MXU_KERNELS})
     launches[fm.TILED] = sharded[fm.TILED]
@@ -1678,7 +1845,9 @@ def main() -> int:
                       "source": f"ligero_prover_tpu_torch/csrc/{src}",
                       "replaces": f"ligero_prover_tpu/{replaces}",
                       "launches": launches[name], **m,
-                      "library_ms": None})
+                      "library_ms": None,
+                      "phase9_launches_per_rank": [
+                          ln["launches"][name] for ln in ranks]})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

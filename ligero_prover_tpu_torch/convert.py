@@ -14,7 +14,7 @@ import torch
 
 from .ops.fieldops import to_torch, to_numpy as _limbs_to_numpy
 from .ops.mxu_ntt import TABLE_KEYS, tables_to_device
-from .parallel.mesh import ColumnShards, shard
+from .parallel.mesh import ColumnShards, Mesh, shard
 
 
 def domain_tables_from_numpy(dom: dict, device=None) -> dict:
@@ -57,18 +57,26 @@ def accs_from_numpy(accs, device=None):
     return tuple(to_torch(np.asarray(a), device) for a in accs)
 
 
-def shard_columns(arr, D: int, axis: int = 0) -> ColumnShards:
+def shard_columns(arr, D: int, axis: int = 0,
+                  mesh: Mesh | None = None) -> ColumnShards:
     """Whole column state (a SHA state (8, n): columns on axis 1; pending
     elements or accumulators (n, 8): axis 0) -> the sharded executor's
-    :class:`ColumnShards` over D shards on the CPU, shard d holding
-    columns j = d (mod D)."""
+    :class:`ColumnShards` over D shards, shard d holding columns
+    j = d (mod D): all D on the CPU, or with `mesh` (of D shards over P
+    ranks, L each) rank r's share, shards [r*L, (r+1)*L) on its
+    devices."""
     x = arr if isinstance(arr, torch.Tensor) else to_torch(np.asarray(arr))
-    return shard(x, [torch.device("cpu")] * D, axis)
+    if mesh is None:
+        mesh = Mesh([torch.device("cpu")] * D)
+    elif mesh.size != D:
+        raise ValueError(f"a mesh of {mesh.size} shards, not {D}")
+    return shard(x, mesh, axis)
 
 
 def gather_columns(shards: ColumnShards) -> np.ndarray:
     """:class:`ColumnShards` -> the whole state as uint32 numpy, columns in
-    natural order."""
+    natural order (over several ranks an all-gather: every rank calls
+    it)."""
     return _limbs_to_numpy(shards.gather("cpu"))
 
 

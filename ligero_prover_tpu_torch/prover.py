@@ -99,7 +99,12 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
     `mesh`: a ``parallel.mesh.Mesh`` (``make_mesh``): a new executor runs
     the stage pipelines column-sharded over its devices (ignored when
     `executor` is given; `device` is then unused); the proof bytes are
-    identical to the single-device prover's.
+    identical to the single-device prover's.  A mesh over the ranks of a
+    process group is proved by every rank at once: each replays
+    `program`, runs its own shards, and returns the same result.  Its
+    ranks prove under one `encoding_seed`: given, it must be the same on
+    every rank (all raise if not); None, rank 0 draws it.  Set
+    ``LIGERO_PROOF_TIMESTAMP`` alike on every rank for equal proof bytes.
 
     `row_tape`: spool stage-1 rows to a temp file and replay them in
     stage 3, skipping the third program execution (rows are identical by
@@ -110,7 +115,10 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
     if executor is None:
         executor = ShardedExecutor(k, n, mesh, batch_rows) \
             if mesh is not None else TorchExecutor(k, n, batch_rows, device)
-    if encoding_seed is None:
+    mesh = getattr(executor, "mesh", None)
+    if mesh is not None:
+        encoding_seed = mesh.shared_seed(encoding_seed)
+    elif encoding_seed is None:
         encoding_seed = os.urandom(32)  # prover-private randomness
 
     # Stage 1: commit ------------------------------------------------------
