@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from ``ligero_prover_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and reports each kernel's registers, spills and SASS
-counts, checks each kernel against its plain PyTorch version at the shapes
+counts and the rate of the carry chains' wide multiply-adds (a probe
+kernel), checks each kernel against its plain PyTorch version at the shapes
 of the main path and times it (KB per butterfly transform, as its planned
 passes, beside the one-stage-per-launch composition; K1 at the AoS
 butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
@@ -29,7 +30,8 @@ proof must equal the butterfly path's byte for byte, and (phase 8) the
 column-sharded prover of ``parallel/mesh.py`` with 4 shards on
 cuda:(i % cards) at full depth, whose proof must equal it too (its coset
 twist is KE mont_mul's tiled mode, checked and timed in phase 3 at the
-sharded path's calls), and (phase 9) the same prover over a
+sharded path's calls with its grid and beside KE mont_scalar, its
+launches counted by call shape), and (phase 9) the same prover over a
 ``torch.distributed`` process group, one process per rank: 4 ranks of one
 card each over NCCL on a host with 4 cards, else 2 ranks of 2 shards each
 on cuda:0 over gloo (``mp_layout``), every rank's proof equal to phase
@@ -129,14 +131,14 @@ SASS_NAME = {
     "butterfly_dit": "pass_kernelILb1E", "butterfly_dif": "pass_kernelILb0E",
     "addmod_planar": "eltwise_kernelILi0E",
     "submod_planar": "eltwise_kernelILi1E",
-    # KE mont_mul (mode 2): the per-row scalar form (the check's calls),
-    # the full-plane form (the linear test) and the tiled form (mode 6, the
-    # sharded encode's twist); mulmod (3): the full-plane form; all in
-    # 16-byte units of 4 elements (SASS_ELEMENTS); mulmod_fma (5): the
-    # full-plane and the per-row form, in single elements
+    # KE mont_mul (mode 2): the per-row scalar form (the check's calls)
+    # and the full-plane form (the linear test); mulmod (3): the full-plane
+    # form; all in 16-byte units of 4 elements (SASS_ELEMENTS); mulmod_fma
+    # (5): the full-plane and the per-row form, in single elements
     "mont_mul_planar": "run_product_kernelILi2ELi1ELb1EE",
     "mont_mul_planar_full": "run_product_kernelILi2ELi0ELb1EE",
-    "mont_mul_tiled_planar": "run_product_kernelILi2ELi2ELb1EE",
+    # the tiled mode (6, the sharded encode's twist)
+    "mont_mul_tiled_planar": "tiled_kernel",
     "mulmod_planar": "run_product_kernelILi3ELi0ELb1EE",
     "quad_terms_planar": "quad_terms_kernelILb1EE",
     "mont_mul_scalar_planar": "mont_scalar_kernel",
@@ -148,6 +150,9 @@ SASS_NAME = {
     # and word by word on planar input
     "digitize": "digitize_kernelILb1E",
     "digitize_planar": "digitize_kernelILb0E",
+    # phase 2's probe of the wide multiply-adds, 1 and 4 chains a thread
+    "imad_probe_1": "imad_probe_kernelILi1E",
+    "imad_probe_4": "imad_probe_kernelILi4E",
 }
 # digitize's threads a CTA, one element each (kDigitThreads of
 # csrc/renorm.cu)
@@ -155,8 +160,7 @@ DIGIT_THREADS = 256
 # elements whose code one pass of the kernel's body holds (its SASS count
 # over this is per element); 1 where not listed
 SASS_ELEMENTS = {"mont_mul_planar": 4, "mont_mul_planar_full": 4,
-                 "mont_mul_tiled_planar": 4, "mulmod_planar": 4,
-                 "quad_terms_planar": 4}
+                 "mulmod_planar": 4, "quad_terms_planar": 4}
 
 
 def make_wat(rounds: int) -> str:
@@ -361,6 +365,55 @@ def run_grid(n: int, length: int, vec: bool) -> tuple[int, int]:
     `vec`, as ``run_geom``/``run_ctas`` in csrc/planar.cu compute them."""
     per_cta = RUN_THREADS * RUN_UNITS * (4 if vec else 1)
     return -(-n // length) * -(-length // per_cta), RUN_THREADS
+
+
+# csrc/planar.cu kTiledMaxThreads
+TILED_MAX_THREADS = 256
+
+
+def tiled_grid(b: int, w: int) -> tuple[int, int]:
+    """(CTAs, threads) of KE mont_mul's tiled mode over b rows of w
+    elements, one element a thread, as ``tiled_geom``/``tiled_ctas`` in
+    csrc/planar.cu compute them."""
+    t = TILED_MAX_THREADS
+    while t > 32 and -(-w // t) * b < SMS:
+        t //= 2
+    return -(-w // t) * b, t
+
+
+def resident_warps(regs: int, threads: int) -> int:
+    """Warps of `threads`-thread CTAs that one SM holds at `regs`
+    registers a thread: 65,536 registers, allocated to a warp in units of
+    256; at most 64 warps and 32 CTAs."""
+    per_warp = -(-regs * 32 // 256) * 256
+    wpc = -(-threads // 32)
+    return min(32, 65536 // per_warp // wpc, 64 // wpc) * wpc
+
+
+def imad_rate(lib, stream) -> dict:
+    """Phase 2's probe of the wide multiply-adds (``ligero_imad_probe``):
+    mont_mul_cc's even chain, 4 IMAD.WIDE a round, in 1 and 4 independent
+    chains a thread, on as many 256-thread CTAs as the card holds at once.
+    Per chain count: CTAs, ms (median of 5, CUDA events) and IMAD.WIDE
+    per clock per SM at the card's maximum SM clock (a lower bound where
+    the card runs slower)."""
+    import ctypes
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(2048 * sms, dtype=torch.int32, device="cuda")
+    blocks, iters, rates = ctypes.c_int(0), 4096, {}
+    for chains in (1, 4):
+        def run():
+            kernels.check(lib.ligero_imad_probe(
+                chains, iters, out.data_ptr(), ctypes.addressof(blocks),
+                stream), "imad_probe")
+        ms = cuda_ms(run, 5)
+        wide = blocks.value * 256 * iters * 4 * chains
+        rates[chains] = {"ctas": blocks.value, "ms": ms,
+                         "per_clk_per_sm": wide / (ms * 1e-3 * sms
+                                                   * CARD["clock_hz"])}
+    return rates
 
 
 def bound(name: str, nbytes: int, threads: int, iters: int = 1):
@@ -768,8 +821,9 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     def ke_ms(name, x, y, z=None):
         """(cold, hot) ms of one ligero_planar_eltwise launch on (x, y)
         and, for mulmod_fma, the addend z (x's shape, contiguous), the
-        bytes it must move, the launch floor at its grid and the elements
-        it computes."""
+        bytes it must move, the launch floor at its grid, the elements it
+        computes and its grid (``run_grid``; the tiled mode:
+        ``tiled_grid``)."""
         xa, x_ls, ya, y_ls, y_div, size = fm.eltwise_args(name, x, y)
         mode = fm.KE_MODE[name]
         out = torch.empty((8, size), dtype=torch.int32, device=device)
@@ -781,16 +835,15 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
                 out.data_ptr(), size, mode, stream), name)
         times = launches_ms(launch, xa, ya, out,
                             *(() if z is None else (z,)))
-        tiled = name == fm.TILED
-        row = y_div > 1 and not tiled
+        row = y_div > 1
         vec = z is None and run_vec(size, x_ls, xa.data_ptr() % 16 == 0,
                                     out.data_ptr() % 16 == 0, row, y_div,
-                                    y_ls, ya.data_ptr() % 16 == 0) \
-            and (not tiled or y_div % 4 == 0)
-        grid = run_grid(size, y_div if row or tiled else size, vec)
+                                    y_ls, ya.data_ptr() % 16 == 0)
+        grid = tiled_grid(size // y_div, y_div) if name == fm.TILED \
+            else run_grid(size, y_div if row else size, vec)
         # x (and z) read, out written, each y element read once
         return times, (64 if z is None else 96) * size + 4 * ya.numel(), \
-            floor_ms(lib, stream, *grid), size
+            floor_ms(lib, stream, *grid), size, grid
 
     # non-canonical operands with the edge values: rows, per-row scalars
     # (the edges as six of the scalars) and full planes
@@ -809,7 +862,7 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     err = compare_cases(fm.mont_mul_planar, fm.mont_mul_planar_plain,
                         [c for _, c in calls] + wild)
     for i, (label, (x, y)) in enumerate(calls):
-        times, nbytes, floor, size = ke_ms("mont_mul_planar", x, y)
+        times, nbytes, floor, size, _ = ke_ms("mont_mul_planar", x, y)
         bnd = bound("mont_mul_planar", nbytes, size)
         sass_name = "mont_mul_planar_full" if y.shape == x.shape \
             else "mont_mul_planar"
@@ -827,22 +880,52 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     # the tiled mode (6) at the sharded encode's calls, D = 4 shards of
     # m = n/4 columns: the k-width flush's twist (8, 16, k) x one (8, 1, k)
     # row, and the 2k mask row's (8, 1, 2k) x (8, 1, 2k); also on
-    # non-canonical words with the edge values
+    # non-canonical words with the edge values (strided views, copied),
+    # an odd B with w not a multiple of 4, a plane-stride view read in
+    # place and w under one CTA's slice
     twist = [(planes((bsz, k)), planes((1, k))),
              (planes((1, 2 * k)), planes((1, 2 * k)))]
     err = compare_cases(fm.mont_mul_tiled_planar,
                         fm.mont_mul_tiled_planar_plain,
                         twist + [(xw[:, :, :k], yw[:, :1, :k]),
                                  (xw.reshape(8, -1)[:, :2 * k][:, None],
-                                  yw.reshape(8, -1)[:, :2 * k])])
+                                  yw.reshape(8, -1)[:, :2 * k]),
+                                 (planes((3, 1030), False),
+                                  planes((1030,), False)),
+                                 (twist[0][0][:, 5:12], twist[0][1]),
+                                 (planes((5, 12), False), planes((12,)))])
+    # KE mont_scalar at the twist's call, the single-device encode's
+    # scaling, timed beside it (ops/ntt.py keeps that encode on it)
+    xs, sc = twist[0][0], planes(())
+    sa = fm.eltwise_args("mont_mul_scalar_planar", xs, sc)
+    s_out = torch.empty((8, sa[5]), dtype=torch.int32, device=device)
+    scalar_ms = launches_ms(lambda xa, ya, out: kernels.check(
+        lib.ligero_planar_eltwise(
+            xa.data_ptr(), sa[1], ya.data_ptr(), sa[3], sa[4], None, 0,
+            out.data_ptr(), sa[5], fm.KE_MODE["mont_mul_scalar_planar"],
+            stream), "mont_mul_scalar_planar"), sa[0], sa[2], s_out)
     for i, (x, y) in enumerate(twist):
         label = f"{tuple(x.shape)} x {tuple(y.shape)}"
-        times, nbytes, floor, size = ke_ms(fm.TILED, x, y)
+        times, nbytes, floor, size, (ctas, threads) = ke_ms(fm.TILED, x, y)
         bnd = bound(fm.TILED, nbytes, size)
-        _run_log(fm.TILED, label, err, times, floor, bnd)
+        regs = CARD.get("ptxas", {}).get(fm.TILED, (0,))[0]
+        warps = ctas * -(-threads // 32) / SMS
+        held = resident_warps(regs, threads) if regs else "not built here"
+        extra = (f"; grid {ctas} CTAs of {threads} threads, one element "
+                 f"and one row a thread, {warps:.1f} warps per SM (the "
+                 f"registers allow {held})")
+        if i == 0:
+            extra += (f"; mont_scalar at the same (8,{bsz},{k}): "
+                      f"{scalar_ms[0]:.4f} (operands in L2: "
+                      f"{scalar_ms[1]:.4f})")
+        _run_log(fm.TILED, label, err, times, floor, bnd, extra)
         CARD.setdefault("ke_tiled", {})[label] = {
             "ms": times[0], "hot_ms": times[1], "floor_ms": floor,
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "ctas": ctas,
+            "threads": threads, "warps_per_sm": warps,
+            "resident_warps": held,
+            **({"mont_scalar_ms": scalar_ms[0],
+                "mont_scalar_hot_ms": scalar_ms[1]} if i == 0 else {})}
         if i == 0:
             report(results, fm.TILED, label + "; the 2k mask row's call "
                    "and non-canonical words", err, times,
@@ -854,7 +937,7 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     x, y = full
     err = compare_cases(fm.mulmod_planar, fm.mulmod_planar_plain,
                         [full, code] + wild)
-    times, nbytes, floor, size = ke_ms("mulmod_planar", x, y)
+    times, nbytes, floor, size, _ = ke_ms("mulmod_planar", x, y)
     bnd = bound("mulmod_planar", nbytes, size)
     _run_log("mulmod_planar", "(8,16,n) x same", err, times, floor, bnd)
     report(results, "mulmod_planar", "(8,16,n) x same, per-row scalars, "
@@ -874,7 +957,7 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
     for label, (x, y), sass_name in (
             ("(8,16,n) + (8,16,n) x same", full, fm.FMA),
             ("(8,16,n) + (8,16,n) x (8,16,1)", code, fm.FMA + "_row")):
-        times, nbytes, floor, size = ke_ms(fm.FMA, x, y, acc)
+        times, nbytes, floor, size, _ = ke_ms(fm.FMA, x, y, acc)
         bnd = bound(fm.FMA, nbytes, size)
         _run_log(sass_name, label, err, times, floor, bnd)
         CARD.setdefault("ke_fma", {})[label] = {
@@ -1566,6 +1649,7 @@ def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
         peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
                  - before[str(dev)] for dev in devices}
         launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+        tiled_shapes = dict(fm.TILED_SHAPES)
         plain = plain_on_cuda()
         for module in (fm, sha, mr):
             module.reset_counts()
@@ -1581,6 +1665,7 @@ def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
         f"prove_peak_above_before_per_device={peaks} (allocated before "
         f"the prove: {before}) launches={launches} "
         f"launches_per_row={sum(launches.values()) / res.num_rows:.2f} "
+        f"tiled launches by (B, w)={tiled_shapes} "
         f"plain_calls_on_cuda={plain} "
         f"proof_bytes={len(res.proof)} equal to phase 5's: "
         f"{res.proof == proof}")
@@ -1668,6 +1753,8 @@ def mp_rank(cfg: dict) -> int:
                 torch.cuda.synchronize(dev)
             prove_s = time.perf_counter() - t0
             launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+            tiled_shapes = {f"{b}x{w}": c
+                            for (b, w), c in fm.TILED_SHAPES.items()}
             plain = plain_on_cuda()
             collectives = dict(mesh.counts)
             peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
@@ -1689,6 +1776,7 @@ def mp_rank(cfg: dict) -> int:
         "prove_peak_above_before_per_device": peaks,
         "allocated_before": before, "launches": launches,
         "launches_per_row": sum(launches.values()) / res.num_rows,
+        "tiled_launches_by_shape": tiled_shapes,
         "plain_calls_on_cuda": {k: v for k, v in plain.items() if v},
         "collectives": collectives}))
     return 0
@@ -1797,6 +1885,17 @@ def main() -> int:
         f"cached={info['cached']}); ptxas (registers, spill store bytes, "
         f"spill load bytes) per kernel: {ptxas}; SASS "
         f"(IMAD.WIDE, IMAD.HI, all) per kernel: {CARD['sass']}")
+    CARD["imad"] = imad_rate(kernels.lib(), kernels.stream_handle(device))
+    log("phase 2: wide multiply-add probe (mont_mul_cc's even chain, "
+        "4 IMAD.WIDE a round; the loop's SASS IMAD.WIDE: "
+        f"{CARD['sass']['imad_probe_1'][0]} and "
+        f"{CARD['sass']['imad_probe_4'][0]}): "
+        + "; ".join(f"{c} chain(s) a thread, {r['ctas']} CTAs of 256: "
+                    f"{r['ms']:.4f} ms, {r['per_clk_per_sm']:.1f} "
+                    f"IMAD.WIDE per clock per SM"
+                    for c, r in CARD["imad"].items())
+        + f" (at {CARD['clock_hz'] / 1e6:.0f} MHz; chip_smoke.bound "
+        f"takes {IMAD_PER_CLK})")
 
     measured = check_kernels(device)
     small = check_small_proofs(device)

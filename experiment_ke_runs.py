@@ -2,9 +2,24 @@
 """Sweep the CTA geometry of KE mont_mul, KE mulmod and quad-terms on one
 GPU (threads per CTA, 4-element units per thread, and the least CTAs per
 SM that ptxas sizes the registers for), beside a second design that
-stages its operands through shared memory.
+stages its operands through shared memory; and the geometry of KE
+mont_mul's tiled mode (``tiled_kernel``) beside the run geometry it ran on
+before.
 
-    python3 experiment_ke_runs.py [--out build/exp_ke_runs.json]
+    python3 experiment_ke_runs.py [--out build/exp_ke_runs.json] [--tiled]
+
+``--tiled`` runs the tiled mode's sweep alone: one build of the source
+below, then, at the sharded encode's twist (8, 16, 8192) x (8, 1, 8192)
+and its 2k mask row (8, 1, 16384) x (8, 1, 16384), every geometry of
+``TILED_THREADS`` threads a CTA, ``TILED_V`` elements and ``TILED_G`` rows
+a thread and ``TILED_MIN_BLOCKS`` register caps (``tiled_vg_kernel``,
+``exp_tiled``: in the source below only), each output equal to the
+port's; the port's own launch (``tiled_geom``'s grid) and the run
+geometry's tiled form that mode 6 ran on before (``tiled_runs_kernel``,
+``exp_tiled_runs``) are timed first and last, in turns: run geometry,
+port, the sweep, port, run geometry.  Times as
+``chip_smoke.py`` takes them (L2-cold rotating copies behind a device
+sleep; the L2-hot time beside).
 
 Builds ``ligero_prover_tpu_torch/csrc/planar.cu`` (with the staged
 design's kernels, which exist only in the source string below) once per
@@ -192,6 +207,60 @@ staged_quad_kernel(const uint32_t* __restrict__ e, uint32_t e_ls,
   }
 }
 
+// KE mont_mul's tiled mode with V elements (4: 16-byte units) and G rows
+// a thread, y's V elements read once into registers and multiplied into
+// each row of the thread's group; CTA c takes column slice c mod slices
+// of row group c / slices.  The port keeps V = G = 1 (tiled_kernel).
+struct TiledVG {
+  uint32_t B, w, V, G, threads, slices;
+};
+
+template <int V, int kMinBlocks>
+__global__ void __launch_bounds__(256, kMinBlocks)
+tiled_vg_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
+                const uint32_t* __restrict__ y, uint32_t y_ls,
+                uint32_t* __restrict__ out, TiledVG g) {
+  const uint32_t group = blockIdx.x / g.slices;
+  const uint32_t slice = blockIdx.x - group * g.slices;
+  const uint32_t i = (uint32_t)V * (slice * g.threads + threadIdx.x);
+  if (i >= g.w) return;
+  const uint32_t r0 = group * g.G;
+  const uint32_t r1 = g.B - r0 < g.G ? g.B : r0 + g.G;
+  uint32_t b[V][8];
+  ligero_pl::load_planes<V>(y, y_ls, i, b);
+  for (uint32_t r = r0; r < r1; ++r) {
+    uint32_t a[V][8], res[V][8];
+    ligero_pl::load_planes<V>(x, x_ls, r * g.w + i, a);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mont_mul_cc(a[j], b[j], res[j]);
+    ligero_pl::store_planes<V>(out, g.B * g.w, r * g.w + i, res);
+  }
+}
+
+// the run geometry's tiled form, which mode 6 ran on before tiled_kernel:
+// runs of w elements (rows), each over g.chunks CTAs of kRunThreads, a
+// thread V elements at a time, y read at the element's offset in its run
+template <int V>
+__global__ void __launch_bounds__(ligero_pl::kRunThreads,
+                                  LIGERO_RUN_MIN_BLOCKS)
+tiled_runs_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
+                  const uint32_t* __restrict__ y, uint32_t y_ls,
+                  uint32_t* __restrict__ out, ligero_pl::RunGeom g) {
+  const uint32_t run = blockIdx.x / g.chunks;
+  const uint32_t c = blockIdx.x - run * g.chunks, start = run * g.len;
+  const uint32_t end = g.n - start < g.len ? g.n : start + g.len;
+  const uint32_t t = (uint32_t)ligero_pl::kRunThreads;
+  for (uint32_t i = start + (uint32_t)V * (c * t + threadIdx.x); i < end;
+       i += (uint32_t)V * g.chunks * t) {
+    uint32_t a[V][8], b[V][8], r[V][8];
+    ligero_pl::load_planes<V>(x, x_ls, i, a);
+    ligero_pl::load_planes<V>(y, y_ls, i - start, b);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mont_mul_cc(a[j], b[j], r[j]);
+    ligero_pl::store_planes<V>(out, g.n, i, r);
+  }
+}
+
 }  // namespace ligero_exp
 
 // the staged design at the check's calls: x (8, n) contiguous, y one
@@ -223,6 +292,61 @@ extern "C" int exp_staged_product(const void* x, const void* y, void* out,
   return (int)cudaGetLastError();
 }
 
+#define EXP_TILED_CASE(v, mb)                                             \
+  if (V == v && min_blocks == mb) {                                       \
+    ligero_exp::tiled_vg_kernel<v, mb><<<grid, threads, 0, s>>>(          \
+        xp, (uint32_t)x_ls, yp, (uint32_t)y_ls, op, g);                   \
+    return (int)cudaGetLastError();                                       \
+  }
+
+// KE mont_mul's tiled mode on an explicit geometry: V elements and G rows
+// a thread, `threads` a CTA, registers capped at min_blocks CTAs of 256 a
+// SM; x (8, B, w) at limb stride x_ls, y one row at y_ls, out (8, B*w)
+extern "C" int exp_tiled(const void* x, long long x_ls, const void* y,
+                         long long y_ls, long long B, long long w, void* out,
+                         int V, int G, int threads, int min_blocks,
+                         void* stream) {
+  const uint32_t units = (uint32_t)((w + V - 1) / V);
+  const ligero_exp::TiledVG g = {
+      (uint32_t)B, (uint32_t)w, (uint32_t)V, (uint32_t)G, (uint32_t)threads,
+      (units + (uint32_t)threads - 1u) / (uint32_t)threads};
+  const unsigned grid = g.slices * (((uint32_t)B + g.G - 1u) / g.G);
+  const uint32_t* xp = (const uint32_t*)x;
+  const uint32_t* yp = (const uint32_t*)y;
+  uint32_t* op = (uint32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  EXP_TILED_CASE(1, 4) EXP_TILED_CASE(1, 5) EXP_TILED_CASE(4, 1)
+  EXP_TILED_CASE(4, 2)
+  return (int)cudaErrorInvalidValue;
+}
+
+// the run geometry's tiled form over n = B*w elements, 16-byte units
+// where run_vec allows them and w is a multiple of 4
+extern "C" int exp_tiled_runs(const void* x, long long x_ls, const void* y,
+                              long long y_ls, long long w, void* out,
+                              long long n, void* stream) {
+  const uint32_t* xp = (const uint32_t*)x;
+  const uint32_t* yp = (const uint32_t*)y;
+  uint32_t* op = (uint32_t*)out;
+  const bool vec = ligero_pl::run_vec((uint32_t)n, (uint32_t)x_ls,
+                                      ligero_pl::aligned16(xp),
+                                      ligero_pl::aligned16(op), false,
+                                      (uint32_t)w, (uint32_t)y_ls,
+                                      ligero_pl::aligned16(yp)) &&
+                   w % 4 == 0;
+  const ligero_pl::RunGeom g = ligero_pl::run_geom((uint32_t)n, (uint32_t)w,
+                                                   vec);
+  const unsigned grid = ligero_pl::run_ctas(g);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    ligero_exp::tiled_runs_kernel<4><<<grid, ligero_pl::kRunThreads, 0, s>>>(
+        xp, (uint32_t)x_ls, yp, (uint32_t)y_ls, op, g);
+  else
+    ligero_exp::tiled_runs_kernel<1><<<grid, ligero_pl::kRunThreads, 0, s>>>(
+        xp, (uint32_t)x_ls, yp, (uint32_t)y_ls, op, g);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int exp_staged_quad(const void* e, long long e_ls, long long n,
                                const void* tri, long long T, const void* pair,
                                long long P, void* out, void* stream) {
@@ -248,14 +372,25 @@ STAGED_SASS = {"mont_mul_planar": "staged_product_kernelILb0ELb1EE",
                "mulmod_planar": "staged_product_kernelILb1ELb0EE",
                "quad_terms_planar": "staged_quad_kernel"}
 
-def build_all(work: Path) -> dict:
+# the tiled mode's sweep: threads a CTA, elements V and rows G a thread,
+# and for each V the register caps that exp_tiled is built with (CTAs of
+# 256 threads a SM: 64 and 51 registers at V = 1, 255 and 128 at 4)
+TILED_THREADS = (32, 64, 128, 256)
+TILED_V = (1, 4)
+TILED_G = (1, 2, 4, 8)
+TILED_MIN_BLOCKS = {1: (4, 5), 4: (1, 2)}
+TILED_CALLS = {"twist (8,16,8192)x(8,1,8192)": (16, 8192),
+               "mask row (8,1,16384)x(8,1,16384)": (1, 16384)}
+
+
+def build_all(work: Path, variants=VARIANTS) -> dict:
     """{variant: (ctypes library, .so path, ptxas log)}, built side by
     side, at most one nvcc per CPU."""
     from ligero_prover_tpu_torch import kernels
     work.mkdir(parents=True, exist_ok=True)
     src = work / "exp_ke_runs.cu"
     src.write_text(SOURCE)
-    out, pending = {}, list(VARIANTS)
+    out, pending = {}, list(variants)
     while pending:
         batch, pending = pending[:os.cpu_count() or 4], \
             pending[os.cpu_count() or 4:]
@@ -281,8 +416,115 @@ def build_all(work: Path) -> dict:
             lib.exp_staged_product.argtypes = [p, p, p, i64, i64,
                                                ctypes.c_int, p]
             lib.exp_staged_quad.argtypes = [p, i64, i64, p, i64, p, i64, p, p]
+            i32 = ctypes.c_int
+            lib.exp_tiled.argtypes = [p, i64, p, i64, i64, i64, p, i32, i32,
+                                      i32, i32, p]
+            lib.exp_tiled_runs.argtypes = [p, i64, p, i64, i64, p, i64, p]
             out[key] = (lib, so, log)
     return out
+
+
+def tiled_sweep(card: str, out_path: str) -> int:
+    """The tiled mode's sweep (``--tiled``): see the module docstring.
+    Prints one line per call and design, the ten fastest geometries of
+    each call, and one JSON object, also written to `out_path`."""
+    import numpy as np
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    device = torch.device("cuda", 0)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    cs.CARD["clock_hz"] = float(clk) * 1e6      # for cs.bound
+    lib, stream = kernels.lib(), kernels.stream_handle(device)
+    vlib, so, log = build_all(kernels.BUILD_DIR / "exp_ke_runs",
+                              VARIANTS[:1])[VARIANTS[0]]
+    names = {f"v{v} min_blocks{mb}": f"tiled_vg_kernelILi{v}ELi{mb}EE"
+             for v in TILED_V for mb in TILED_MIN_BLOCKS[v]}
+    names["port"] = "tiled_kernel"
+    names["run geometry"] = "tiled_runs_kernelILi4EE"
+    ptxas = cs.ptxas_report(log, names)
+    # (IMAD.WIDE, IMAD.HI, all) SASS of each kernel's body
+    sass = cs.sass_counts(so, names)
+    gen = np.random.default_rng(cs.SEED)
+    result = {"card": card, "ptxas": ptxas, "sass": sass, "calls": {}}
+    for label, (b, w) in TILED_CALLS.items():
+        x = cs.random_limbs(gen, (b, w), device, True).movedim(-1, 0) \
+            .contiguous()
+        y = cs.random_limbs(gen, (w,), device, True).movedim(-1, 0) \
+            .contiguous()
+        n = b * w
+        want = fm.mont_mul_tiled_planar(x, y).reshape(8, n)
+        out = torch.empty((8, n), dtype=torch.int32, device=device)
+        nbytes = 64 * n + 32 * w
+        bnd = cs.bound(fm.TILED, nbytes, n)
+
+        def port(x, y, out):
+            kernels.check(lib.ligero_planar_eltwise(
+                x.data_ptr(), n, y.data_ptr(), w, w, None, 0, out.data_ptr(),
+                n, fm.TILED_MODE, stream), "port")
+
+        def runs(x, y, out):
+            kernels.check(vlib.exp_tiled_runs(
+                x.data_ptr(), n, y.data_ptr(), w, w, out.data_ptr(), n,
+                stream), "run geometry")
+
+        def timed(launch):
+            out.fill_(-1)
+            launch(x, y, out)
+            torch.cuda.synchronize()
+            cs.require(torch.equal(out, want), f"{label}: equal to the port")
+            return cs.launches_ms(launch, x, y, out)
+
+        row = {"bound_ms": bnd[0], "bound_by": bnd[1],
+               "port_grid": cs.tiled_grid(b, w),
+               "runs_grid": cs.run_grid(n, w, True),
+               "floor_ms": {
+                   "port": cs.floor_ms(lib, stream, *cs.tiled_grid(b, w)),
+                   "runs": cs.floor_ms(lib, stream,
+                                       *cs.run_grid(n, w, True))},
+               "turns": [], "sweep": []}
+        for name, launch in (("runs", runs), ("port", port)):
+            row["turns"].append((name, timed(launch)))
+        for t in TILED_THREADS:
+            for v in TILED_V:
+                for g in TILED_G:
+                    if g > b:
+                        continue
+                    for mb in TILED_MIN_BLOCKS[v]:
+                        def launch(x, y, out, t=t, v=v, g=g, mb=mb):
+                            kernels.check(vlib.exp_tiled(
+                                x.data_ptr(), n, y.data_ptr(), w, b, w,
+                                out.data_ptr(), v, g, t, mb, stream),
+                                "exp_tiled")
+                        ms = timed(launch)
+                        ctas = -(-(w // v) // t) * -(-b // g)
+                        row["sweep"].append({
+                            "threads": t, "V": v, "G": g, "min_blocks": mb,
+                            "ctas": ctas,
+                            "registers": ptxas.get(f"v{v} min_blocks{mb}"),
+                            "ms": ms})
+        for name, launch in (("port", port), ("runs", runs)):
+            row["turns"].append((name, timed(launch)))
+        result["calls"][label] = row
+        print(f"{label}: bound {bnd[0]:.4f} ms ({bnd[1]}); (cold, hot) ms "
+              f"in turns {[(k, tuple(round(t, 4) for t in v)) for k, v in row['turns']]}; "
+              f"port grid (CTAs, threads) {row['port_grid']}, run "
+              f"geometry grid {row['runs_grid']}; floors {row['floor_ms']}",
+              flush=True)
+        for r in sorted(row["sweep"], key=lambda r: r["ms"][0])[:10]:
+            print(f"  threads={r['threads']} V={r['V']} G={r['G']} "
+                  f"min_blocks={r['min_blocks']} "
+                  f"CTAs={r['ctas']} (registers, spill stores, spill "
+                  f"loads)={r['registers']}: {r['ms'][0]:.4f} (hot "
+                  f"{r['ms'][1]:.4f})", flush=True)
+    print(f"registers: {ptxas}; SASS of the body: {sass}", flush=True)
+    print(json.dumps(result), flush=True)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(result, indent=1))
+    return 0
 
 
 def main() -> int:
@@ -290,6 +532,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/exp_ke_runs.json")
+    ap.add_argument("--tiled", action="store_true",
+                    help="the tiled mode's sweep alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("experiment_ke_runs: no CUDA device", file=sys.stderr)
@@ -301,6 +545,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    if args.tiled:
+        return tiled_sweep(card, args.out)
     device = torch.device("cuda", 0)
     lib, stream = kernels.lib(), kernels.stream_handle(device)
     builds = build_all(kernels.BUILD_DIR / "exp_ke_runs")

@@ -141,6 +141,43 @@ mulmod_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
 // An empty kernel: the launch floor that chip_smoke.py times beside K2.
 __global__ void empty_kernel() {}
 
+// The wide multiply-add probe (chip_smoke.py phase 2): each thread runs
+// `iters` rounds of kChains independent accumulators, each taking one of
+// mont_mul_cc's even chains a round (4 mad.lo.cc/madc.hi.cc pairs, each
+// pair one IMAD.WIDE.U32(.X) in SASS, then two carry adds), and writes one
+// word so that nothing is dropped.  A chain's first product waits only for
+// its accumulator's first word from the round before, as in mont_mul_cc.
+template <int kChains>
+__global__ void __launch_bounds__(256)
+imad_probe_kernel(uint32_t iters, uint32_t* __restrict__ out) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t x = t * 0x9e3779b9u + 1u, b0 = x ^ 0x85ebca6bu,
+                 b2 = x ^ 0xc2b2ae35u, b4 = x + 0x27d4eb2fu,
+                 b6 = x + 0x165667b1u;
+  uint32_t e[kChains][9], o[kChains][9];
+#pragma unroll
+  for (int k = 0; k < kChains; ++k)
+#pragma unroll
+    for (int j = 0; j < 9; ++j) e[k][j] = o[k][j] = x + 9u * k + j;
+#pragma unroll 1
+  for (uint32_t it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < kChains; ++k)
+      LIGERO_CC(LIGERO_EVEN_CHAIN("%11", "%12", "%13", "%14"),
+                LIGERO_E9(e[k], o[k]),
+                (LIGERO_R(x), LIGERO_R(b0), LIGERO_R(b2), LIGERO_R(b4),
+                 LIGERO_R(b6)));
+  }
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int k = 0; k < kChains; ++k) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) acc ^= e[k][j];
+    acc ^= o[k][8];
+  }
+  out[t] = acc;
+}
+
 }  // namespace ligero_fm
 
 // x: (n, 8) u32, y: (y_rows, 8) u32 with element i using y[i % y_rows],
@@ -182,6 +219,36 @@ extern "C" int ligero_mont_mul(const void* x, const void* y, void* out,
 // cudaGetLastError().
 extern "C" int ligero_empty(int blocks, int threads, void* stream) {
   ligero_fm::empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// Launches the wide multiply-add probe with chains (1 or 4) accumulators a
+// thread and `iters` rounds, as many 256-thread CTAs as fit the card at
+// once (every SM full, one wave); sets *blocks to that count.  out: blocks
+// * 256 words.  Returns cudaGetLastError() (or the occupancy query's
+// error).
+extern "C" int ligero_imad_probe(int chains, int iters, void* out,
+                                 int* blocks, void* stream) {
+  if ((chains != 1 && chains != 4) || iters < 1)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        chains == 1 ? ligero_fm::imad_probe_kernel<1>
+                    : ligero_fm::imad_probe_kernel<4>,
+        256, 0);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = sms * per_sm;
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* op = (uint32_t*)out;
+  if (chains == 1)
+    ligero_fm::imad_probe_kernel<1><<<*blocks, 256, 0, s>>>(iters, op);
+  else
+    ligero_fm::imad_probe_kernel<4><<<*blocks, 256, 0, s>>>(iters, op);
   return (int)cudaGetLastError();
 }
 

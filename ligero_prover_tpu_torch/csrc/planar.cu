@@ -56,7 +56,9 @@
 // y_div = w elements tiled over x: element i reads y[i mod w].  It is the
 // sharded encode's coset twist (ops/ntt.py, encode_rows_coset_planar_core):
 // (8, B, w) coefficient rows times one (8, w) table of 1/w times the
-// shard's powers, the 1/w scaling and the twist in one launch.  Mode kScalar (mont_scalar) is a kernel of its own: one
+// shard's powers, the 1/w scaling and the twist in one launch; it is a
+// kernel of its own (tiled_kernel, with its note below).  Mode kScalar
+// (mont_scalar) is a kernel of its own too: one
 // element s, read once per thread into registers, and field.cuh's
 // carry-chain product mont_mul_cc, about a third of mont_mul's
 // instructions: at the encode's (8, 16, k) call the product is then a
@@ -444,11 +446,10 @@ LIGERO_HD void store_planes(uint32_t* p, uint32_t ls, uint32_t i,
   }
 }
 
-// How the run products read y: a full plane read as x is (kYFull), one
+// How the run products read y: a full plane read as x is (kYFull), or one
 // element per run read once into registers (kYRow: a per-row scalar, runs
-// of y_div elements), or one run-long row read at the element's offset in
-// its run (kYTile: runs of w elements, element i reading y[i mod w]).
-enum { kYFull = 0, kYRow = 1, kYTile = 2 };
+// of y_div elements).
+enum { kYFull = 0, kYRow = 1 };
 
 // Thread t of CTA `cta` of KE mont_mul (kMode kMont: x*y*2^-256 mod p),
 // mulmod (kMulmod: x*y mod p) or mulmod_fma (kFma: z + x*y mod p, as the
@@ -476,7 +477,6 @@ LIGERO_HD void run_product_at(const uint32_t* x, uint32_t x_ls,
     uint32_t a[V][8], b[V][8], r[V][8];
     load_planes<V>(x, x_ls, i, a);
     if (kY == kYFull) load_planes<V>(y, y_ls, i, b);
-    if (kY == kYTile) load_planes<V>(y, y_ls, i - start, b);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       if (kMode == kMont)
@@ -530,6 +530,83 @@ LIGERO_HD void quad_terms_at(const uint32_t* e, uint32_t e_ls,
     }
     store_planes<V>(o, g.n, i, r);
   }
+}
+
+// ---- KE mont_mul's tiled mode (mode 6): one element a thread ---------------
+//
+// Replaces _k_mont_mul's planar entry with y one row tiled over x
+// (ligero_prover_tpu/ops/pallas/fieldmul.py:260): out[:, b, i] =
+// x[:, b, i] * y[:, i] * 2^-256 mod p over (8, B, w) rows, by field.cuh's
+// mont_mul_cc.  Its calls are the sharded encode's twist, (8, 16, k) rows
+// times one (8, k) row, and the 2k mask rows, (8, 1 or 2, 2k) times
+// (8, 2k).  What bounds it on this card: the twist at k = 8192 moves
+// 8.65 MB, 0.0026 ms at HBM's rate, and makes 131,072 products of 144
+// wide multiply-adds (IMAD.WIDE.U32(.X), SASS), which chip_smoke.py's
+// probe (phase 2) measures at 20-24 per clock per SM in the carry chains:
+// 3.0-3.6 us over 132 SMs at 1.98 GHz, longer than the bytes.  Each chain
+// is serial, so only many warps per SM keep the multipliers busy; the mask
+// row's 16,384 products are too few for that and are bound by the latency
+// of one load, one product and one store.  The run geometry that mode 6
+// took before gave 128 CTAs of 4 warps at the twist and 16 at the mask
+// row, each thread 8 products in turn, and re-read y's row for every row
+// of x.  Design: one element and one row a thread, y's element read once
+// into registers, and a grid of as many warps as the call has elements
+// over 32; tiled_geom sizes the CTA so that every SM holds at least one.
+//
+// Chosen by measurement (experiment_ke_runs.py --tiled: L2-cold, NVIDIA
+// H100 80GB HBM3 at 700 W; each the best over 32-256 threads a CTA).
+// Twist: 0.0068 ms on tiled_geom's grid (512 CTAs of 256, 31 warps per
+// SM), against 0.0094 on the run geometry; 4 elements a thread in 16-byte
+// units 0.0076, y's element kept in registers over 2 rows a thread 0.0073
+// and over 4 rows 0.0086; the operands in L2 take 0.0052, within 5% of
+// the 2.0 us launch floor plus the multiply-adds' 3.0 us.  Mask row
+// (8, 1, 16384): 0.0038 (256 CTAs of 64) against 0.0076; 4 elements a
+// thread 0.0050.  More elements or rows a thread put its products behind
+// one another and leave fewer warps to hide the chains, which costs more
+// than the y re-reads they save (those variants are in the experiment's
+// source only).
+
+// H100 SXM's SMs and the most threads a CTA of the tiled mode.
+enum { kSms = 132, kTiledMaxThreads = 256 };
+
+// A launch over B rows of w elements: `threads` a CTA, `slices` CTAs
+// across a row; CTA c takes column slice c mod slices of row c / slices.
+struct TiledGeom {
+  uint32_t B, w, threads, slices;
+};
+
+// The grid rule: the most threads a CTA (256 down to 32) that still give
+// every SM a CTA, as K1 and K2 size their blocks (mulmod_threads).
+LIGERO_HHD TiledGeom tiled_geom(uint32_t B, uint32_t w) {
+  TiledGeom g = {B, w, kTiledMaxThreads, 0u};
+  while (g.threads > 32u && (w + g.threads - 1u) / g.threads * B < kSms)
+    g.threads >>= 1;
+  g.slices = (w + g.threads - 1u) / g.threads;
+  return g;
+}
+
+LIGERO_HHD uint32_t tiled_ctas(const TiledGeom& g) { return g.slices * g.B; }
+
+// Thread t of CTA `cta`: its row and column i; false past the row's end.
+LIGERO_HD bool tiled_span(const TiledGeom& g, uint32_t cta, uint32_t t,
+                          uint32_t& row, uint32_t& i) {
+  row = cta / g.slices;
+  i = (cta - row * g.slices) * g.threads + t;
+  return i < g.w;
+}
+
+// Thread t of CTA `cta` of the tiled mode: x's rows at limb stride x_ls,
+// y's one row at limb stride y_ls, out (8, B*w) contiguous.
+LIGERO_HD void tiled_at(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                        uint32_t y_ls, uint32_t* out, const TiledGeom& g,
+                        uint32_t cta, uint32_t t) {
+  uint32_t row, i;
+  if (!tiled_span(g, cta, t, row, i)) return;
+  uint32_t a[1][8], b[1][8], r[1][8];
+  load_planes<1>(y, y_ls, i, b);
+  load_planes<1>(x, x_ls, row * g.w + i, a);
+  mont_mul_cc(a[0], b[0], r[0]);
+  store_planes<1>(out, g.B * g.w, row * g.w + i, r);
 }
 
 }  // namespace ligero_pl
@@ -613,8 +690,26 @@ quad_terms_kernel(const uint32_t* __restrict__ e, uint32_t e_ls,
                               threadIdx.x);
 }
 
+// The tiled mode; registers capped at 64 (4 CTAs of kTiledMaxThreads an
+// SM), so that the twist's 31 warps per SM fit beside each other.
+__global__ void __launch_bounds__(kTiledMaxThreads, 4)
+tiled_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
+             const uint32_t* __restrict__ y, uint32_t y_ls,
+             uint32_t* __restrict__ out, TiledGeom g) {
+  tiled_at(x, x_ls, y, y_ls, out, g, blockIdx.x, threadIdx.x);
+}
+
 inline bool aligned16(const void* p) {
   return (unsigned long long)p % 16 == 0;
+}
+
+// KE mont_mul's tiled mode over n = B*w elements, y one row of w
+// elements, on tiled_geom's grid.
+inline void launch_tiled(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                         uint32_t y_ls, uint32_t w, uint32_t* out,
+                         uint32_t n, cudaStream_t s) {
+  const TiledGeom g = tiled_geom(n / w, w);
+  tiled_kernel<<<tiled_ctas(g), g.threads, 0, s>>>(x, x_ls, y, y_ls, out, g);
 }
 
 template <int kMode, int kY>
@@ -631,22 +726,17 @@ void launch_runs(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
 }
 
 // KE mont_mul or mulmod (kMode) over n elements: y one element per run
-// of y_div > 1 elements (read once per thread), or a full plane; or
-// (tiled, mont_mul only) one row of y_div elements read at i mod y_div.
-// 16-byte accesses where run_vec allows them (tiled: also y_div, the run
-// length, a multiple of 4).
+// of y_div > 1 elements (read once per thread), or a full plane.  16-byte
+// accesses where run_vec allows them.
 template <int kMode>
 void launch_product(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
-                    uint32_t y_ls, uint32_t y_div, bool tiled, uint32_t* out,
-                    uint32_t n, cudaStream_t s) {
-  const bool row = !tiled && y_div > 1u;
+                    uint32_t y_ls, uint32_t y_div, uint32_t* out, uint32_t n,
+                    cudaStream_t s) {
+  const bool row = y_div > 1u;
   const bool vec = run_vec(n, x_ls, aligned16(x), aligned16(out), row,
-                           y_div, y_ls, aligned16(y)) &&
-                   (!tiled || y_div % 4u == 0);
-  const RunGeom g = run_geom(n, row || tiled ? y_div : n, vec);
-  if (tiled)
-    launch_runs<kMode, kYTile>(x, x_ls, y, y_ls, out, g, s);
-  else if (row)
+                           y_div, y_ls, aligned16(y));
+  const RunGeom g = run_geom(n, row ? y_div : n, vec);
+  if (row)
     launch_runs<kMode, kYRow>(x, x_ls, y, y_ls, out, g, s);
   else
     launch_runs<kMode, kYFull>(x, x_ls, y, y_ls, out, g, s);
@@ -725,8 +815,9 @@ extern "C" int ligero_planar_pass(const void* x, const void* tw, void* y,
 // Element-wise planar op (KE).  x: 8 planes of n words at limb stride
 // x_ls; y: planes at limb stride y_ls, element i reading y[i / y_div]
 // (mode 4 reads element 0 only; mode 6 reads y[i mod y_div], y_ls >=
-// y_div); z: mode 5's addend, planes of n words at limb stride z_ls
-// (ignored, may be null, in the other modes); out: (8, n) contiguous, not
+// y_div, n a multiple of y_div); z: mode 5's addend, planes of n words
+// at limb stride z_ls (ignored, may be null, in the other modes); out:
+// (8, n) contiguous, not
 // aliasing x, y or z.  mode 0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4
 // mont_scalar, 5 mulmod_fma (z + x*y), 6 mont_mul with y tiled.
 // Every plane offset must stay below 2^32.  Returns cudaGetLastError().
@@ -739,7 +830,7 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
   if (n < 0 || x_ls < n || y_ls < 0 || y_div < 1 || mode < 0 || mode > 6 ||
       7 * x_ls + n >= (1ll << 32) || 8 * n >= (1ll << 32) ||
       7 * y_ls + (tiled ? y_div : (n + y_div - 1) / y_div) >= (1ll << 32) ||
-      (tiled && y_ls < y_div))
+      (tiled && (y_ls < y_div || n % y_div != 0)))
     return (int)cudaErrorInvalidValue;
   if (mode == ligero_pl::kFma &&
       (z == nullptr || z_ls < n || 7 * z_ls + n >= (1ll << 32)))
@@ -765,16 +856,15 @@ extern "C" int ligero_planar_eltwise(const void* x, long long x_ls,
           xp, xl, yp, yl, yd, op, nn);
       break;
     case ligero_pl::kMont:
-      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, false,
-                                                  op, nn, s);
+      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, op,
+                                                  nn, s);
       break;
     case ligero_pl::kTiled:
-      ligero_pl::launch_product<ligero_pl::kMont>(xp, xl, yp, yl, yd, true,
-                                                  op, nn, s);
+      ligero_pl::launch_tiled(xp, xl, yp, yl, yd, op, nn, s);
       break;
     case ligero_pl::kMulmod:
       ligero_pl::launch_product<ligero_pl::kMulmod>(xp, xl, yp, yl, yd,
-                                                    false, op, nn, s);
+                                                    op, nn, s);
       break;
     case ligero_pl::kFma:
       ligero_pl::launch_fma(xp, xl, yp, yl, yd, zp, zl, op, nn, s);

@@ -47,7 +47,8 @@ SIGNATURES = {
     "ligero_planar_pass": (_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P),
     # x, x_limb_stride, y, y_limb_stride, y_div, z, z_limb_stride, out, n,
     # mode (0 addmod, 1 submod, 2 mont_mul, 3 mulmod, 4 mont_scalar,
-    # 5 mulmod_fma: z + x*y; z is read in mode 5 only), stream
+    # 5 mulmod_fma: z + x*y; z is read in mode 5 only; 6 mont_mul with y
+    # one row of y_div elements tiled over x), stream
     "ligero_planar_eltwise": (_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64,
                               _I32, _P),
     # e, e_limb_stride, B, n, tri (T, 3) int32, T, pair (P, 2) int32, P,
@@ -63,6 +64,9 @@ SIGNATURES = {
     "ligero_digitize": (_P, _I64, _I64, _P, _I64, _P),
     # blocks, threads, stream: an empty kernel, the launch floor
     "ligero_empty": (_I32, _I32, _P),
+    # chains (1 or 4), iters, out, blocks (int*, set), stream: the wide
+    # multiply-add probe of chip_smoke.py phase 2
+    "ligero_imad_probe": (_I32, _I32, _P, _P, _P),
 }
 
 _lib = None

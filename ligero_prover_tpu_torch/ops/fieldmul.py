@@ -72,6 +72,7 @@ MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
                                  *PLANAR_MODE, FMA, TILED, QUAD)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
+TILED_SHAPES = Counter()  # the tiled mode's launches by (B rows, width w)
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
 
 
@@ -79,6 +80,7 @@ def reset_counts():
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         PLAIN_CALLS[key].clear()
+    TILED_SHAPES.clear()
 
 
 # ---- plain versions ------------------------------------------------------
@@ -598,11 +600,15 @@ def mulmod_planar(x, y):
 def mont_mul_tiled_planar(x, y):
     """KE mont_mul, tiled: x (8, ..., w) times y, one row of w elements
     ((8, w) or (8, 1, w)), element i of x's last axis by y's element i:
-    x*y*2^-256 mod p, one launch over every row of x."""
+    x*y*2^-256 mod p, one launch over every row of x, counted in
+    :data:`TILED_SHAPES` by (B, w), B = x[0].numel() // w."""
     _tile_row(x, y)
     if _on_cpu(x, y):
         return mont_mul_tiled_planar_plain(x, y)
-    return _eltwise(TILED, x, y)
+    out = _eltwise(TILED, x, y)
+    w = x.shape[-1]
+    TILED_SHAPES[(x[0].numel() // w, w)] += 1
+    return out
 
 
 def quad_terms_planar(e, tri_idx, pair_idx):

@@ -263,10 +263,11 @@ def encode_rows_cg_planar_core(rows, dom_msg, dom_n, n: int,
     absorb, the check accumulators) skip the transpose back.
 
     The coset encode at D = 1 gives the same limbs; this path stays for
-    the single device because its one scalar (KE mont_scalar) is faster
-    than the coset encode's tiled twist at the same (8, 16, 8192) call
-    (chip_smoke phase 3, PERF.md §6), and the int8 engine replaces it for
-    the k-width rows."""
+    the single device because its one scalar (KE mont_scalar, 0.0069 ms)
+    and the coset encode's tiled twist (0.0068 ms since its redesign)
+    take the same time at the (8, 16, 8192) call (chip_smoke phase 3,
+    PERF.md §6), so the switch gains nothing there, and the int8 engine
+    replaces this scaling for the k-width rows."""
     w = rows.shape[1]
     x = _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
                             dom_msg["cg_inv_pl"], max_pass)

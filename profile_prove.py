@@ -10,7 +10,8 @@ prover (4 shards on cuda:(i % cards)), side by side.
 For each configuration of ``ops.ntt.USE_PLANAR``, ``ops.ntt.USE_MXU`` and
 the shard count on the vbn254fr guest of ``chip_smoke.make_wat`` at
 k=8192: one warm-up prove;
-one timed prove (wall and stage seconds, the port's launch counters); one
+one timed prove (wall and stage seconds, the port's launch counters, the
+tiled mode's launches by call shape); one
 prove under ``torch.profiler`` (device kernel time, kernel count, the top
 device ops, the device ms and launches of each of the port's own
 kernels and of the library's row gathers and concatenations); and, before any prove, one 16-row k->n encode as the
@@ -193,7 +194,10 @@ def profile_config(name: str, rounds: int) -> dict:
         out.update(rows=res.num_rows, prove_s=wall,
                    stages_s={s: T.get_timer(s)
                              for s in ("stage1", "stage2", "stage3")},
-                   kernel_wrapper_launches=counted)
+                   kernel_wrapper_launches=counted,
+                   tiled_launches_by_shape={
+                       f"{b}x{w}": c for (b, w), c in
+                       fm.TILED_SHAPES.items()})
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

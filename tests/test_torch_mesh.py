@@ -292,9 +292,12 @@ def _planes(arr, device):
 
 @pytest.mark.cuda
 def test_tiled_kernel_matches_plain(cuda_device):
-    """KE mont_mul's tiled mode against its plain version: 16-byte units
-    (w % 4 == 0), single elements, a plane-stride view, a strided (copied)
-    x, non-canonical words and the 2k mask row's shape."""
+    """KE mont_mul's tiled mode against its plain version: w a multiple
+    of 4 and not, a plane-stride view, a strided (copied)
+    x, non-canonical words, the 2k mask row's shape, and the sharded
+    encode's two calls at full width: the twist (8, 16, 8192) x (8, 8192)
+    and the mask row (8, 1, 16384) x (8, 16384); each launch counted in
+    TILED_SHAPES under its (B, w)."""
     gen = np.random.default_rng(5)
     x = _planes(rand_limbs(gen, (6, 1000), False), cuda_device)
     x[:, 0, :13] = _planes(ints_to_limbs(NONCANONICAL + EDGES), cuda_device)
@@ -303,15 +306,22 @@ def test_tiled_kernel_matches_plain(cuda_device):
     y_odd = _planes(rand_limbs(gen, (1, 1002)), cuda_device)
     mask = _planes(rand_limbs(gen, (1, 2048)), cuda_device)
     y_mask = _planes(rand_limbs(gen, (2048,)), cuda_device)
+    twist = _planes(rand_limbs(gen, (16, 8192)), cuda_device)
+    y_twist = _planes(rand_limbs(gen, (8192,)), cuda_device)
+    row2k = _planes(rand_limbs(gen, (1, 16384)), cuda_device)
+    y_row2k = _planes(rand_limbs(gen, (16384,)), cuda_device)
     cases = [(x, y), (x[:, 1:4], y), (odd, y_odd), (x[:, :, ::2], y[:, :500]),
-             (mask, y_mask)]
+             (mask, y_mask), (twist, y_twist), (row2k, y_row2k)]
     before = tfm.LAUNCHES[tfm.TILED]
+    shapes = dict(tfm.TILED_SHAPES)
     for a, b in cases:
         got = tfm.mont_mul_tiled_planar(a, b)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(),
                            tfm.mont_mul_tiled_planar_plain(a.cpu(), b.cpu()))
     assert tfm.LAUNCHES[tfm.TILED] == before + len(cases)
+    for shape in ((16, 8192), (1, 16384)):
+        assert tfm.TILED_SHAPES[shape] == shapes.get(shape, 0) + 1
 
 
 @pytest.mark.cuda

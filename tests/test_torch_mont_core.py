@@ -83,9 +83,8 @@ extern "C" uint32_t k2_threads(uint32_t n) { return mulmod_threads(n); }
 
 // KE mont_mul, mulmod and mulmod_fma as launch_product runs them: every
 // thread of every CTA of the run geometry (rows of y_div > 1 elements with
-// one y element each, else one run with y a full plane; tiled: rows of
-// y_div elements reading one row y), 4-element units if vec; z is
-// mulmod_fma's addend
+// one y element each, else one run with y a full plane), 4-element units
+// if vec; z is mulmod_fma's addend
 template <int kMode, int kY>
 static void ke_product_runs(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* y, uint32_t y_ls,
@@ -106,14 +105,10 @@ template <int kMode>
 static void ke_product_mode(const uint32_t* x, uint32_t x_ls,
                             const uint32_t* y, uint32_t y_ls, uint32_t y_div,
                             const uint32_t* z, uint32_t z_ls, uint32_t* out,
-                            uint32_t n, int vec, bool tiled) {
-  const bool row = !tiled && y_div > 1u;
-  const ligero_pl::RunGeom g =
-      ligero_pl::run_geom(n, row || tiled ? y_div : n, vec);
-  if (tiled)
-    ke_product_runs<kMode, ligero_pl::kYTile>(x, x_ls, y, y_ls, z, z_ls, out,
-                                              g);
-  else if (row)
+                            uint32_t n, int vec) {
+  const bool row = y_div > 1u;
+  const ligero_pl::RunGeom g = ligero_pl::run_geom(n, row ? y_div : n, vec);
+  if (row)
     ke_product_runs<kMode, ligero_pl::kYRow>(x, x_ls, y, y_ls, z, z_ls, out,
                                              g);
   else
@@ -121,21 +116,71 @@ static void ke_product_mode(const uint32_t* x, uint32_t x_ls,
                                               g);
 }
 
+// KE mont_mul's tiled mode on geometry g as tiled_kernel runs it: every
+// thread of every CTA
+static void ke_tiled_on(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                        uint32_t y_ls, uint32_t* out,
+                        const ligero_pl::TiledGeom& g) {
+  for (uint32_t c = 0; c < ligero_pl::tiled_ctas(g); ++c)
+    for (uint32_t t = 0; t < g.threads; ++t)
+      ligero_pl::tiled_at(x, x_ls, y, y_ls, out, g, c, t);
+}
+
+// the tiled mode as launch_tiled runs it over n = B*w elements, on
+// tiled_geom's grid
+extern "C" void ke_tiled(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
+                         uint32_t y_ls, uint32_t w, uint32_t* out,
+                         uint32_t n) {
+  ke_tiled_on(x, x_ls, y, y_ls, out, ligero_pl::tiled_geom(n / w, w));
+}
+
+// the tiled mode on CTAs of `threads` threads
+extern "C" void ke_tiled_geom(const uint32_t* x, uint32_t x_ls,
+                              const uint32_t* y, uint32_t y_ls,
+                              uint32_t* out, uint32_t B, uint32_t w,
+                              uint32_t threads) {
+  const ligero_pl::TiledGeom g = {B, w, threads,
+                                  (w + threads - 1u) / threads};
+  ke_tiled_on(x, x_ls, y, y_ls, out, g);
+}
+
+// tiled_geom's (CTAs, threads) for B rows of w elements
+extern "C" void tiled_rule(uint32_t B, uint32_t w, uint32_t* out) {
+  const ligero_pl::TiledGeom g = ligero_pl::tiled_geom(B, w);
+  out[0] = ligero_pl::tiled_ctas(g);
+  out[1] = g.threads;
+}
+
+// how many threads of CTAs of `threads` own each of the B*w elements
+// (tiled_span, as tiled_at reads it)
+extern "C" void tiled_cover(uint32_t B, uint32_t w, uint32_t threads,
+                            uint32_t* counts) {
+  const ligero_pl::TiledGeom g = {B, w, threads,
+                                  (w + threads - 1u) / threads};
+  for (uint32_t c = 0; c < ligero_pl::tiled_ctas(g); ++c)
+    for (uint32_t t = 0; t < g.threads; ++t) {
+      uint32_t row, i;
+      if (ligero_pl::tiled_span(g, c, t, row, i)) ++counts[row * w + i];
+    }
+}
+
 // mode: 2 mont_mul, 3 mulmod, 5 mulmod_fma, 6 mont_mul tiled
-// (ligero_planar_eltwise's)
+// (ligero_planar_eltwise's; mode 6 on tiled_kernel's geometry, vec unused)
 extern "C" void ke_product(const uint32_t* x, uint32_t x_ls,
                            const uint32_t* y, uint32_t y_ls, uint32_t y_div,
                            const uint32_t* z, uint32_t z_ls, uint32_t* out,
                            uint32_t n, int mode, int vec) {
-  if (mode == ligero_pl::kMont || mode == ligero_pl::kTiled)
+  if (mode == ligero_pl::kTiled)
+    ke_tiled(x, x_ls, y, y_ls, y_div, out, n);
+  else if (mode == ligero_pl::kMont)
     ke_product_mode<ligero_pl::kMont>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
-                                      n, vec, mode == ligero_pl::kTiled);
+                                      n, vec);
   else if (mode == ligero_pl::kMulmod)
     ke_product_mode<ligero_pl::kMulmod>(x, x_ls, y, y_ls, y_div, z, z_ls,
-                                        out, n, vec, false);
+                                        out, n, vec);
   else
     ke_product_mode<ligero_pl::kFma>(x, x_ls, y, y_ls, y_div, z, z_ls, out,
-                                     n, vec, false);
+                                     n, vec);
 }
 
 // whether launch_product moves 16-byte units
@@ -211,6 +256,10 @@ def _build(tmp_path_factory, name, defines):
     lib.quad_terms.argtypes = [ptr, u32, u32, ptr, u32, ptr, u32, ptr, i32]
     lib.run_ctas.argtypes = [u32, u32, i32]
     lib.run_ctas.restype = u32
+    lib.ke_tiled.argtypes = [ptr, u32, ptr, u32, u32, ptr, u32]
+    lib.ke_tiled_geom.argtypes = [ptr, u32, ptr, u32, ptr, u32, u32, u32]
+    lib.tiled_rule.argtypes = [u32, u32, ptr]
+    lib.tiled_cover.argtypes = [u32, u32, u32, ptr]
     return lib
 
 
@@ -485,7 +534,8 @@ def test_ke_product_element_function_matches_plain(run_core, name, form,
     check's calls), a full plane (the linear test) or one scalar for all
     (8, 1, 1); 16-byte units (n a multiple of 4) or single elements
     (mulmod_fma: single elements, as its launch runs it); the tiled
-    mode's one row (8, 1, n) read at each element's offset in its row;
+    mode's one row (8, 1, n) read at each element's offset in its row, on
+    tiled_kernel's geometry;
     non-canonical operands with the edge values and carry-heavy limb
     patterns (mulmod_fma: its addend z too, and the first row of x and z
     canonical); against the plain versions."""
@@ -618,3 +668,90 @@ def test_run_vec_matches_chip_smoke(core, case):
     assert bool(got) is vec
     assert run_vec(n, x_ls, flags["x"], flags["out"], row, y_div, y_ls,
                    flags["y"]) is vec
+
+
+# ---- KE mont_mul's tiled mode (tiled_kernel) ---------------------------------
+
+POISON = 0xA5A5A5A5
+
+# (B rows, w, x's limb-stride pad, canonical): the twist and the 2k mask
+# rows (one and two) at full width, an odd B, w not a multiple of 4, w
+# under one CTA's slice, a plane-stride view and non-canonical words
+TILED_CASES = [(16, 8192, 0, True), (1, 16384, 0, True),
+               (2, 16384, 0, False),
+               (3, 1024, 0, False), (3, 1030, 0, False),
+               (5, 12, 0, False), (2, 6, 0, False),
+               (16, 512, 4 * 512, False),
+               (4, 1030, 3, False)]
+
+
+def _tiled_operands(gen, b, w, pad, canonical):
+    """x (8, b, w) stored at limb stride b*w + pad, y (8, w) stored at
+    limb stride w + 4: (x, stored x, y, stored y)."""
+    if canonical:
+        x = rand_limbs(gen, (b * w,)).T.reshape(8, b, w)
+        y = rand_limbs(gen, (w,)).T.copy()
+    else:
+        x = _wild_rows(gen, b * w).T.reshape(8, b, w)
+        y = _wild_rows(gen, w)[::-1].T.copy()
+    return x, _strided(x, b * w + pad), y, _strided(y, w + 4)
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_kernel_matches_plain(core, case):
+    """KE mont_mul's tiled mode as launch_tiled runs it, every thread of
+    every CTA of tiled_geom's grid, into a poisoned output: every element
+    is owned by exactly one thread (tiled_span) and equals
+    fm.mont_mul_tiled_planar_plain, at the twist's (8, 16, 8192) and the
+    mask row's (8, 1, 16384), an odd B, w not a multiple of 4, w under
+    one CTA's slice, x as a view at a larger limb stride, and
+    non-canonical words with the edge values."""
+    b, w, pad, canonical = case
+    gen = np.random.default_rng(b * w + pad)
+    x, xs, y, ys = _tiled_operands(gen, b, w, pad, canonical)
+    n = b * w
+    out = np.full((8, n), POISON, dtype=np.uint32)
+    core.ke_tiled(xs.ctypes.data, n + pad, ys.ctypes.data, w + 4, w,
+                  out.ctypes.data, n)
+    want = tfm.mont_mul_tiled_planar_plain(to_t(x), to_t(y))
+    np.testing.assert_array_equal(out, to_np(want).reshape(8, n))
+    rule = np.zeros(2, dtype=np.uint32)
+    core.tiled_rule(b, w, rule.ctypes.data)
+    counts = np.zeros(n, dtype=np.uint32)
+    core.tiled_cover(b, w, int(rule[1]), counts.ctypes.data)
+    np.testing.assert_array_equal(counts, np.ones(n, dtype=np.uint32))
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,w", [(7, 520), (2, 31), (5, 257)])
+def test_tiled_geometries_match_plain(core, threads, b, w):
+    """tiled_at on every CTA size the grid rule can choose, over
+    non-canonical rows at a padded limb stride, w a multiple of the CTA,
+    not one, and under one CTA: every element owned once, and equal to
+    the plain version."""
+    pad = 4
+    gen = np.random.default_rng(threads * 1000 + b * w)
+    x, xs, y, ys = _tiled_operands(gen, b, w, pad, False)
+    n = b * w
+    out = np.full((8, n), POISON, dtype=np.uint32)
+    core.ke_tiled_geom(xs.ctypes.data, n + pad, ys.ctypes.data, w + 4,
+                       out.ctypes.data, b, w, threads)
+    want = tfm.mont_mul_tiled_planar_plain(to_t(x), to_t(y))
+    np.testing.assert_array_equal(out, to_np(want).reshape(8, n))
+    counts = np.zeros(n, dtype=np.uint32)
+    core.tiled_cover(b, w, threads, counts.ctypes.data)
+    np.testing.assert_array_equal(counts, np.ones(n, dtype=np.uint32))
+
+
+@pytest.mark.parametrize("b,w", [(16, 8192), (1, 16384), (2, 16384),
+                                 (1, 8192), (15, 8192), (16, 16384),
+                                 (3, 1030), (5, 12), (1, 6), (64, 32768),
+                                 (1, 4096), (2, 100)])
+def test_tiled_geometry_matches_chip_smoke(core, b, w):
+    """The tiled mode's grid (CTAs, threads) at the sharded encode's
+    calls, a short last flush, other widths and sizes, as chip_smoke.py
+    computes it for the launch floor and its report."""
+    from chip_smoke import tiled_grid
+    rule = np.zeros(2, dtype=np.uint32)
+    core.tiled_rule(b, w, rule.ctypes.data)
+    assert tuple(int(r) for r in rule) == tiled_grid(b, w)
