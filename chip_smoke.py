@@ -11,7 +11,10 @@ of the main path and times it (KB per butterfly transform, as its planned
 passes, beside the one-stage-per-launch composition; K1 at the AoS
 butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
 rows, the verifier's 192 columns) also at their small calls, beside the
-launch floor of an empty kernel with the same grid; one invmod ladder of
+launch floor of an empty kernel with the same grid; KA (AoS add/sub) at
+the vbn254fr arena's constant calls, its broadcast-first ``const_sub`` and
+the verifier's rows, and KF (the ordered fold) at the verifier's and the
+AoS check's sums, beside their floors; one invmod ladder of
 K1 launches against the plain ladder; KE mont_mul at the check's three
 calls and quad-terms beside the nine launches it replaced; KR digitize on
 the engine's AoS rows read in place and on planar limbs, and KE
@@ -48,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import gzip
 import json
+import math
 import os
 import re
 import statistics
@@ -122,6 +126,9 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 SASS_NAME = {
     # K1 with its 32-bit index (below 2^31 elements)
     "mont_mul": "mont_mul_kernelIjE", "mulmod": "mulmod_kernel",
+    # KA's two modes and KF
+    "addmod_aos": "addsub_kernelILi0E", "submod_aos": "addsub_kernelILi1E",
+    "masked_sum_aos": "masked_sum_kernel",
     # K3 at the commit step's tile (128 columns per CTA) and at the
     # verifier's (32): both roles in one function, one compression each
     "sha256_absorb": "absorb_tile_kernelILb0ELi128E",
@@ -668,6 +675,122 @@ def check_aos_kernels(device, gen, lib, stream, results):
             f"floor_ms={floor:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         require(err == 0, f"sha256_absorb at C={cols} equals its plain "
+                "version")
+
+
+def check_limb_kernels(device, gen, lib, stream, results):
+    """KA (addmod/submod) and KF (the ordered fold) at the calls of the
+    planar path, on canonical, edge (all pairs of ``edge_limbs``) and
+    non-canonical operands (limbs up to 2^256 - 1, sums that carry out of
+    2^256), against their plain versions on the card; timed beside the
+    launch floor at their grid."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+
+    def limbs(shape, canonical=True):
+        return random_limbs(gen, shape, device, canonical)
+
+    edges = edge_limbs(device)
+    xe = edges.repeat_interleave(len(edges), 0)        # every ordered pair
+    ye = edges.repeat(len(edges), 1)
+
+    def ka_ms(name, x, y):
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        n = math.prod(shape[:-1])
+        xv, *xd = fm.aos_view(x, shape)
+        yv, *yd = fm.aos_view(y, shape)
+        return launches_ms(lambda xv, yv, out: kernels.check(
+            lib.ligero_aos_eltwise(xv.data_ptr(), *xd, yv.data_ptr(), *yd,
+                                   out.data_ptr(), n, fm.AOS_MODE[name],
+                                   stream), name),
+            xv, yv, torch.empty(shape, dtype=torch.int32, device=device))
+
+    # (label, x shape, y shape, x expanded to the result first): the
+    # arena's x +- constant and constant - x (const_sub), the verifier's
+    # (T, 192, 8) and mask (192, 8) rows, the prove's mask row (n, 8)
+    calls = [("arena + constant", (FULL_K,), (), False),
+             ("const_sub", (1,), (FULL_K,), True),
+             ("verifier", (16, 192), (16, 192), False),
+             ("verifier mask", (192,), (192,), False),
+             ("mask row", (4 * FULL_K,), (4 * FULL_K,), False)]
+    for name in fm.AOS_MODE:
+        kernel = getattr(fm, name)
+        plain = getattr(fm, name + "_plain")
+        for label, xs, ys, first in calls:
+            x, y = limbs(xs), limbs(ys)
+            xw = limbs(xs, False)
+            yw = limbs(ys, False)
+            xw.view(-1, 8)[:min(6, xw.numel() // 8)] = edges[:xw.numel() // 8]
+            cases = [(x, y), (xw, yw), (xe, ye), (ye, xe)]
+            if first:
+                shape = ys + (8,)
+                cases = [(a.expand(shape), b) for a, b in cases[:2]] \
+                    + cases[2:]
+                x = x.expand(shape)
+            err = compare_cases(kernel, plain, cases)
+            shape = torch.broadcast_shapes(x.shape, y.shape)
+            size = math.prod(shape[:-1])
+            times = ka_ms(name, x, y)
+            floor = floor_ms(lib, stream, *k2_grid(size))
+            # each operand's own elements read once (a broadcast one
+            # once), the result written once
+            bnd = bound(name, 32 * (math.prod(xs) + math.prod(ys) + size),
+                        size)
+            plain_ms = cuda_ms(lambda: plain(x, y), 3)
+            main = (name, label) in (("addmod_aos", "arena + constant"),
+                                     ("submod_aos", "verifier"))
+            if main:
+                report(results, name, f"{label} {tuple(shape)}, canonical, "
+                       "non-canonical and edge pairs", err, times, plain_ms,
+                       bnd, floor)
+                continue
+            CARD[f"{name} {label}"] = {"ms": times[0], "hot_ms": times[1],
+                                       "floor_ms": floor,
+                                       "bound_ms": bnd[0],
+                                       "plain_ms": plain_ms}
+            log(f"phase 3: {name} at the {label}'s {tuple(x.shape)} and "
+                f"{tuple(y.shape)}, grid {k2_grid(size)}: max_abs_err={err} "
+                f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+                f"floor_ms={floor:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            require(err == 0, f"{name} at the {label}'s shape equals its "
+                    "plain version")
+
+    # KF at the verifier's (16, 192, 8) and the AoS check's (16, 32768, 8)
+    # sums; B = 0, 1 and 17 checked beside
+    name = "masked_sum_aos"
+    for label, rows, n in (("verifier", 16, 192),
+                           ("AoS check", 16, 4 * FULL_K)):
+        acc, terms = limbs((n,)), limbs((rows, n))
+        accw, termsw = limbs((n,), False), limbs((rows, n), False)
+        accw[:6] = edges
+        termsw[:, :6] = edge_limbs(device, reverse=True)
+        termsw[:, -2:] = -1                 # 2^256 - 1: every add carries
+        cases = [(acc, terms), (accw, termsw), (accw, termsw[:0]),
+                 (accw, termsw[:1]), (accw, limbs((17, n), False))]
+        err = compare_cases(fm.masked_sum_aos, fm.masked_sum_aos_plain,
+                            cases)
+        out = torch.empty_like(acc)
+        times = launches_ms(lambda a, t, o: kernels.check(
+            lib.ligero_masked_sum(a.data_ptr(), t.data_ptr(), o.data_ptr(),
+                                  n, rows, stream), name), acc, terms, out)
+        floor = floor_ms(lib, stream, *k2_grid(n))
+        bnd = bound(name, 32 * n * (rows + 2), n)
+        plain_ms = cuda_ms(lambda: fm.masked_sum_aos_plain(acc, terms), 3)
+        if label == "verifier":
+            report(results, name, f"({rows}, {n}, 8) into ({n}, 8), B = 0, "
+                   "1, 16 and 17, canonical, non-canonical and edge rows",
+                   err, times, plain_ms, bnd, floor)
+            continue
+        CARD[f"{name} {label}"] = {"ms": times[0], "hot_ms": times[1],
+                                   "floor_ms": floor, "bound_ms": bnd[0],
+                                   "plain_ms": plain_ms}
+        log(f"phase 3: {name} at the {label}'s ({rows}, {n}, 8), grid "
+            f"{k2_grid(n)}: max_abs_err={err} kernel_ms={times[0]:.4f} "
+            f"(operands in L2: {times[1]:.4f}) floor_ms={floor:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0, f"{name} at the {label}'s shape equals its plain "
                 "version")
 
 
@@ -1381,6 +1504,7 @@ def check_kernels(device) -> dict:
     lib, stream = kernels.lib(), kernels.stream_handle(device)
     results = {}
     check_aos_kernels(device, gen, lib, stream, results)
+    check_limb_kernels(device, gen, lib, stream, results)
     check_butterfly_passes(device, gen, lib, stream, results)
     check_planar_kernels(device, gen, lib, stream, results)
     check_ke_runs(device, gen, lib, stream, results)
@@ -1484,18 +1608,49 @@ def plain_on_cuda() -> dict:
             {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS, **mr.PLAIN_CALLS}.items()}
 
 
+# KA and KF: the arena's and the mask step's adds (both paths), the
+# verifier's submods and sums, the AoS check's sums and the AoS codec
+LIMB_KERNELS = ("addmod_aos", "submod_aos", "masked_sum_aos")
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
                   "mont_mul_planar", "quad_terms_planar",
-                  "mont_mul_scalar_planar", "sha256_absorb_planar")
+                  "mont_mul_scalar_planar", "sha256_absorb_planar",
+                  *LIMB_KERNELS)
 AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
 MXU_KERNELS = ("digitize", "renorm_mid", "renorm_final")
 
 
+def device_time_us(evt) -> float:
+    """Device time of one ``key_averages()`` row, in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_kernels(fn) -> tuple[int, float]:
+    """(device kernels, device seconds) of one call of `fn` under
+    ``torch.profiler``, synchronised at its end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in dev), \
+        sum(device_time_us(e) for e in dev) / 1e6
+
+
 def prove_full(device, phase: str, planar: bool, rounds: int,
-               mxu: bool = False) -> tuple[dict, bytes]:
+               mxu: bool = False,
+               profile: bool = False) -> tuple[dict, bytes]:
     """Prove and verify make_wat(rounds) at k=8192 in one configuration,
-    counting every kernel's launches from zero; the tamper check runs on
-    the planar paths.  Returns the launch counts and the proof."""
+    counting every kernel's launches from zero (the prove's and the
+    verify's apart); the tamper check runs on the planar paths; with
+    `profile`, one more prove and verify each under ``torch.profiler``
+    count their device kernels.  Returns the launch counts (prove and
+    verify) and the proof."""
     import torch
     from ligero_prover_tpu_torch.ops import fieldmul as fm, sha256 as sha, \
         mxu_renorm as mr
@@ -1522,6 +1677,7 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
         prove_peak = torch.cuda.max_memory_allocated() - before
+        proved = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
         t0 = time.perf_counter()
         vres = verify(prog, res.proof, geometry=geo, device=device)
         torch.cuda.synchronize()
@@ -1531,6 +1687,8 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
         peak = torch.cuda.max_memory_allocated()
         stages = {s: round(T.get_timer(s), 3)
                   for s in ("stage1", "stage2", "stage3")}
+        verified = {k: v - proved[k] for k, v in launches.items()
+                    if v != proved[k]}
         log(f"{phase}: {label} k={FULL_K} n={geo.n} make_wat({rounds}): "
             f"rows={res.num_rows} prove_s={prove_s:.3f} "
             f"rows_per_s={res.num_rows / prove_s:.1f} stages_s={stages} "
@@ -1539,9 +1697,14 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             f"{prove_peak} (allocated before: {before}) launches={launches} "
             f"launches_per_row={sum(launches.values()) / res.num_rows:.2f} "
             f"plain_calls_on_cuda={plain}")
+        log(f"{phase}: {label} launches of the prove "
+            f"{ {k: v for k, v in proved.items() if v} } "
+            f"({sum(proved.values()) / res.num_rows:.2f} per row), of the "
+            f"verify {verified} "
+            f"({sum(verified.values()) / res.num_rows:.2f} per row)")
         require(res.ok, f"{label} prove self-check")
         require(vres.ok, f"port verifier accepts the {label} proof")
-        path = (PLANAR_KERNELS if planar else AOS_KERNELS) \
+        path = (PLANAR_KERNELS if planar else AOS_KERNELS + LIMB_KERNELS) \
             + (MXU_KERNELS if mxu else ())
         require(all(launches[k] > 0 for k in path),
                 f"every kernel of the {label} path launched: {launches}")
@@ -1553,6 +1716,20 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             log(f"{phase}: one-bit tamper of sampled_data rejected: "
                 f"{not bad.ok}")
             require(not bad.ok, "tampered proof rejected")
+        if profile:
+            rows = res.num_rows
+            kp, tp = device_kernels(lambda: prove(
+                prog, geometry=geo, encoding_seed=bytes(32), device=device))
+            kv, tv = device_kernels(lambda: verify(
+                prog, res.proof, geometry=geo, device=device))
+            CARD["device_kernels"] = {
+                "rows": rows, "prove": kp, "prove_per_row": kp / rows,
+                "prove_device_s": tp, "verify": kv,
+                "verify_per_row": kv / rows, "verify_device_s": tv}
+            log(f"{phase}: {label} torch.profiler: prove {kp} device "
+                f"kernels ({kp / rows:.3f} per row, {tp:.4f} s device "
+                f"time), verify {kv} ({kv / rows:.3f} per row, {tv:.4f} s "
+                f"device time)")
     return launches, res.proof
 
 
@@ -1595,7 +1772,11 @@ def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
 
 
 SHARDS = 4
-SHARDED_KERNELS = PLANAR_KERNELS + ("mont_mul_tiled_planar", "mulmod")
+# the sharded phases prove and do not verify: no submod (make_wat has
+# none) and no fold (the verifier's and the AoS check's)
+SHARDED_KERNELS = tuple(k for k in PLANAR_KERNELS
+                        if k not in ("submod_aos", "masked_sum_aos")) \
+    + ("mont_mul_tiled_planar", "mulmod")
 
 
 def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
@@ -1900,7 +2081,8 @@ def main() -> int:
     measured = check_kernels(device)
     small = check_small_proofs(device)
     os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
-    launches, proof = prove_full(device, "phase 5", True, FULL_ROUNDS)
+    launches, proof = prove_full(device, "phase 5", True, FULL_ROUNDS,
+                                 profile=True)
     aos, _ = prove_full(device, "phase 6", False, AOS_ROUNDS)
     mxu = prove_mxu(device, launches, proof)
     sharded = prove_sharded(device, proof, small["bit_decompose"])
@@ -1936,6 +2118,11 @@ def main() -> int:
         "renorm_final": ("renorm.cu", "ops/pallas/mxu_renorm.py:124"),
         # no caller on any path of either package: launched in phase 3 only
         "renorm_pack": ("renorm.cu", "ops/pallas/mxu_renorm.py:139"),
+        # XLA ops of the reference, not Pallas kernels: fo.addmod/submod
+        # and the verifier's _masked_sum loop
+        "addmod_aos": ("fieldmul.cu", "ops/fieldops.py:100"),
+        "submod_aos": ("fieldmul.cu", "ops/fieldops.py:106"),
+        "masked_sum_aos": ("fieldmul.cu", "zkp/executor.py:108"),
     }
     table = []
     for name, (src, replaces) in meta.items():

@@ -1,5 +1,6 @@
-// BN254-Fr Montgomery multiply for Hopper: kernels K1 (mont_mul) and K2
-// (mulmod) over AoS (N, 8) little-endian u32 limbs.
+// BN254-Fr arithmetic for Hopper over AoS (N, 8) little-endian u32 limbs:
+// kernels K1 (mont_mul), K2 (mulmod), KA (addmod/submod) and KF (the
+// verifier's ordered fold, below).
 //
 // Replaces the Pallas TPU kernels _k_mont_mul and _k_mulmod
 // (ligero_prover_tpu/ops/pallas/fieldmul.py:260,264, launched through
@@ -43,6 +44,23 @@
 // calls spread over the SMs (mulmod_threads).  At the AoS check's 2^19
 // elements it takes 256-thread blocks; its ~460 instructions per element
 // then take less time than its bytes.
+
+// KA (AoS add/sub) and KF (the ordered fold): replace the XLA ops that the
+// reference fuses into its jitted bodies, fo.addmod/fo.submod
+// (ligero_prover_tpu/ops/fieldops.py:100-111) and the verifier's
+// _masked_sum fori_loop (ligero_prover_tpu/zkp/executor.py:108-112).
+// Both run field.cuh's add_mod/sub_mod, which drop the carry out of 2^256
+// exactly where the reference does, so non-canonical operands give the
+// reference's bits.  Their main-path calls are small (the vbn254fr
+// arena's (8192, 8) +- (1, 8) rows, the verifier's (192, 8) sums), bound
+// by the launch and one dependent load; the AoS check's fold of
+// (16, 32768, 8) rows is bound by its bytes.  So: one element (KA) or one
+// column (KF) per thread, 16-byte loads, K2's block rule.  KA reads each
+// operand through a two-level view (aos_elem), so broadcast constants,
+// twiddles and the strided halves of the AoS codec are read in place and
+// never expanded.  KF adds the B rows of a column in order, as the
+// reference's loop does: a reordered sum is not the same function on
+// non-canonical rows, where a carry out of 2^256 is dropped.
 
 #include "field.cuh"
 
@@ -100,8 +118,68 @@ LIGERO_HD void mulmod_at(const uint32_t* x, const uint32_t* y, uint32_t* out,
   store_elem(out + 8ull * i, r);
 }
 
-// K2's and K1's threads per block: the largest of 256, 128, 64, 32 that
-// still gives every SM of the card (132) a block, else one warp.
+// KA's view of one operand: element i of the (broadcast) result reads
+// element (i / div) * outer + (i % div) * inner of the operand, in units
+// of one 8-limb element.  div >= n: element i * inner (contiguous rows:
+// inner 1; one broadcast element: inner 0); a (h, 8) twiddle over (B, h,
+// 8) rows: div h, outer 0, inner 1; the half x[:, :h] of (B, n, 8) rows:
+// div h, outer n, inner 1.
+struct AosView {
+  uint32_t div;
+  unsigned long long outer, inner;
+};
+
+// The view that ligero_aos_eltwise hands its kernel for n elements (a div
+// of n or more reads as n: element i of i < n is then i * inner).
+static inline AosView make_aos_view(long long div, long long outer,
+                                    long long inner, long long n) {
+  return AosView{(uint32_t)(div < n ? div : n), (unsigned long long)outer,
+                 (unsigned long long)inner};
+}
+
+LIGERO_HD unsigned long long aos_elem(const AosView& v, uint32_t i) {
+  if (i < v.div) return (unsigned long long)i * v.inner;
+  const uint32_t q = i / v.div;
+  return (unsigned long long)q * v.outer
+         + (unsigned long long)(i - q * v.div) * v.inner;
+}
+
+// Element i < n of KA: out[i] = x + y mod p (kMode 0) or x - y mod p
+// (kMode 1), x and y read through their views.
+template <int kMode>
+LIGERO_HD void aos_eltwise_at(const uint32_t* x, const AosView& xv,
+                              const uint32_t* y, const AosView& yv,
+                              uint32_t* out, uint32_t i) {
+  uint32_t a[8], b[8], r[8];
+  load_elem(x + 8ull * aos_elem(xv, i), a);
+  load_elem(y + 8ull * aos_elem(yv, i), b);
+  if (kMode == 0)
+    add_mod(a, b, r);
+  else
+    sub_mod(a, b, r);
+  store_elem(out + 8ull * i, r);
+}
+
+// Column i < n of KF: out[i] = acc[i] + terms[0, i] + ... + terms[B-1, i]
+// mod p, one add_mod at a time in the order b = 0 .. B-1 (B = 0: acc[i]).
+LIGERO_HD void masked_sum_at(const uint32_t* acc, const uint32_t* terms,
+                             uint32_t* out, uint32_t n, uint32_t rows,
+                             uint32_t i) {
+  uint32_t a[8], t[8], r[8];
+  load_elem(acc + 8ull * i, a);
+#pragma unroll 4
+  for (uint32_t b = 0; b < rows; ++b) {
+    load_elem(terms + 8ull * ((unsigned long long)b * n + i), t);
+    add_mod(a, t, r);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) a[l] = r[l];
+  }
+  store_elem(out + 8ull * i, a);
+}
+
+// K2's, K1's, KA's and KF's threads per block: the largest of 256, 128,
+// 64, 32 that still gives every SM of the card (132) a block, else one
+// warp.
 static inline uint32_t mulmod_threads(uint32_t n) {
   uint32_t t = 256u;
   while (t > 32u && (n + t - 1u) / t < 132u) t >>= 1;
@@ -136,6 +214,25 @@ mulmod_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
               uint32_t* __restrict__ out, uint32_t n, uint32_t y_rows) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) mulmod_at(x, y, out, n, y_rows, i);
+}
+
+// KA: one element per thread
+template <int kMode>
+__global__ void __launch_bounds__(256)
+addsub_kernel(const uint32_t* __restrict__ x, AosView xv,
+              const uint32_t* __restrict__ y, AosView yv,
+              uint32_t* __restrict__ out, uint32_t n) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) aos_eltwise_at<kMode>(x, xv, y, yv, out, i);
+}
+
+// KF: one column per thread
+__global__ void __launch_bounds__(256)
+masked_sum_kernel(const uint32_t* __restrict__ acc,
+                  const uint32_t* __restrict__ terms,
+                  uint32_t* __restrict__ out, uint32_t n, uint32_t rows) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) masked_sum_at(acc, terms, out, n, rows, i);
 }
 
 // An empty kernel: the launch floor that chip_smoke.py times beside K2.
@@ -212,6 +309,59 @@ extern "C" int ligero_mont_mul(const void* x, const void* y, void* out,
     ligero_fm::mont_mul_kernel<unsigned long long><<<1048576, 256, 0, s>>>(
         xp, yp, op, (unsigned long long)n, (unsigned long long)y_rows);
   }
+  return (int)cudaGetLastError();
+}
+
+// KA: out (n, 8) = x + y mod p (mode 0) or x - y mod p (mode 1), element
+// i of x at element (i / x_div) * x_outer + (i % x_div) * x_inner of x
+// (AosView), and y alike.  n below 2^31 (a 32-bit thread index), divs
+// positive, strides not negative; every element 16-byte aligned.  Returns
+// cudaGetLastError().
+extern "C" int ligero_aos_eltwise(const void* x, long long x_div,
+                                  long long x_outer, long long x_inner,
+                                  const void* y, long long y_div,
+                                  long long y_outer, long long y_inner,
+                                  void* out, long long n, int mode,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  if (n >= (1ll << 31) || (mode != 0 && mode != 1) || x_div <= 0
+      || y_div <= 0 || x_outer < 0 || x_inner < 0 || y_outer < 0
+      || y_inner < 0)
+    return (int)cudaErrorInvalidValue;
+  const ligero_fm::AosView xv =
+      ligero_fm::make_aos_view(x_div, x_outer, x_inner, n);
+  const ligero_fm::AosView yv =
+      ligero_fm::make_aos_view(y_div, y_outer, y_inner, n);
+  const uint32_t threads = ligero_fm::mulmod_threads((uint32_t)n);
+  const uint32_t blocks = ((uint32_t)n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* xp = (const uint32_t*)x;
+  const uint32_t* yp = (const uint32_t*)y;
+  uint32_t* op = (uint32_t*)out;
+  if (mode == 0)
+    ligero_fm::addsub_kernel<0><<<blocks, threads, 0, s>>>(
+        xp, xv, yp, yv, op, (uint32_t)n);
+  else
+    ligero_fm::addsub_kernel<1><<<blocks, threads, 0, s>>>(
+        xp, xv, yp, yv, op, (uint32_t)n);
+  return (int)cudaGetLastError();
+}
+
+// KF: out (n, 8) = acc (n, 8) + terms[0] + ... + terms[B-1] mod p, terms
+// (B, n, 8), added in that order column by column; B = 0 copies acc.  n
+// and B below 2^31; all three contiguous and 16-byte aligned.  Returns
+// cudaGetLastError().
+extern "C" int ligero_masked_sum(const void* acc, const void* terms,
+                                 void* out, long long n, long long rows,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  if (n >= (1ll << 31) || rows < 0 || rows >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t threads = ligero_fm::mulmod_threads((uint32_t)n);
+  ligero_fm::masked_sum_kernel<<<((uint32_t)n + threads - 1) / threads,
+                                 threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)acc, (const uint32_t*)terms, (uint32_t*)out,
+      (uint32_t)n, (uint32_t)rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
-"""BN254-Fr field kernels: K1 (``mont_mul``) and K2 (``mulmod``) over AoS
-(..., 8) limbs, and the planar family over (8, ...) limb planes: KB (a pass
-of s constant-geometry butterfly stages, ``butterfly_dit_pass``/
-``butterfly_dif_pass``; ``butterfly_dit``/``butterfly_dif`` are its
-one-stage case) and KE (``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
+"""BN254-Fr field kernels: K1 (``mont_mul``), K2 (``mulmod``), KA
+(``addmod_aos``, ``submod_aos``) and KF (``masked_sum_aos``: acc plus B
+rows, added in order) over AoS (..., 8) limbs, and the planar family over
+(8, ...) limb planes: KB (a pass of s constant-geometry butterfly
+stages, ``butterfly_dit_pass``/``butterfly_dif_pass``;
+``butterfly_dit``/``butterfly_dif`` are its one-stage case) and KE
+(``addmod_planar``, ``submod_planar``, ``mont_mul_planar``,
 ``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``,
 ``mont_mul_tiled_planar``: mont_mul by one row tiled over the first
 operand, the sharded encode's coset twist, and ``quad_terms_planar``: the
@@ -17,7 +19,14 @@ planar entry redesigned around its one caller, the check's
 ``jnp.take`` + ``mulmod_planar`` + ``submod_planar`` + ``concatenate`` at
 ``ligero_prover_tpu/zkp/executor.py:233-250``).  The CUDA sources are
 ``csrc/fieldmul.cu`` and ``csrc/planar.cu``; this module holds the
-wrappers and, beside each kernel, its plain PyTorch version.
+wrappers and, beside each kernel, its plain PyTorch version.  KA and KF
+replace XLA ops of the reference, not Pallas kernels: ``fo.addmod``/
+``fo.submod`` (``ligero_prover_tpu/ops/fieldops.py:100-111``) and the
+verifier's ``_masked_sum`` loop (``ligero_prover_tpu/zkp/executor.py:
+108-112``); ``ops.fieldops.addmod``/``submod`` dispatch to KA.  Their
+plain versions are the limb chains ``_addmod_chain``/``_submod_chain``,
+which every other plain version here calls by name, so that no plain
+version reaches a kernel on a CUDA tensor.
 
 A wrapper runs the plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises;
@@ -54,9 +63,8 @@ import torch.nn.functional as nnf
 
 from ..field import bn254 as F
 from .. import kernels
-from . import fieldops as fo
 from .fieldops import MASK32, P_INTS, R2_LIMBS, NLIMB, _add, _cond_sub, \
-    narrow, to_torch
+    _select, _sub, narrow, to_torch, widen
 
 PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
@@ -69,8 +77,10 @@ QUAD = "quad_terms_planar"    # KE mulmod around the check: rows by index
 STAGES = ("butterfly_dit", "butterfly_dif")   # KB: counted once per pass
 MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 #                         shared-memory tile (csrc/planar.cu, kLog2Tile)
-LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *STAGES,
-                                 *PLANAR_MODE, FMA, TILED, QUAD)}
+AOS_MODE = {"addmod_aos": 0, "submod_aos": 1}   # KA's `mode` argument
+FOLD = "masked_sum_aos"       # KF: acc + the B rows of terms, in order
+LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *AOS_MODE, FOLD,
+                                 *STAGES, *PLANAR_MODE, FMA, TILED, QUAD)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 TILED_SHAPES = Counter()  # the tiled mode's launches by (B rows, width w)
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
@@ -160,7 +170,60 @@ def mulmod_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _mont_plain(_mont_plain(x, y), to_torch(R2_LIMBS, x.device))
 
 
+def _addmod_chain(x, y):
+    """(x + y) mod p as a chain of limb ops, broadcasting: the carry out
+    of 2^256 dropped, then one conditional subtract of p."""
+    s, _ = _add(widen(x), widen(y))
+    return narrow(_cond_sub(s, P_INTS))
+
+
+def _submod_chain(x, y):
+    """(x - y) mod p as a chain of limb ops, broadcasting: + p (mod 2^256)
+    where the subtract borrowed."""
+    d, nb = _sub(widen(x), widen(y))
+    fix, _ = _add(d, P_INTS)
+    return narrow(_select(nb != 0, fix, d))
+
+
+def addmod_aos_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of KA addmod (any device, broadcasting)."""
+    PLAIN_CALLS["addmod_aos"][x.device.type] += 1
+    return _addmod_chain(x, y)
+
+
+def submod_aos_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of KA submod (any device, broadcasting)."""
+    PLAIN_CALLS["submod_aos"][x.device.type] += 1
+    return _submod_chain(x, y)
+
+
+def masked_sum_aos_plain(acc: torch.Tensor,
+                         terms: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of KF: acc + terms[0] + ... + terms[B-1] mod
+    p, one addmod at a time in that order (B = 0: acc itself)."""
+    PLAIN_CALLS[FOLD][acc.device.type] += 1
+    for i in range(terms.shape[0]):
+        acc = _addmod_chain(acc, terms[i])
+    return acc
+
+
 # ---- kernel wrappers -----------------------------------------------------
+
+def _check_cuda(name: str, *ts: torch.Tensor):
+    """Operands of an AoS kernel: int32 tensors on one CUDA device."""
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands must be CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.int32 for t in ts):
+        raise TypeError(f"{name}: operands must be int32 limbs")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous from a 16-byte boundary (a copy where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
 
 def _tiled(t: torch.Tensor, shape) -> torch.Tensor | None:
     """`t` as contiguous (R, 8) rows whose element i of the broadcast
@@ -179,11 +242,7 @@ def _tiled(t: torch.Tensor, shape) -> torch.Tensor | None:
 
 
 def _launch(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    if x.device.type != "cuda" or y.device != x.device:
-        raise ValueError(f"{name}: operands must be CUDA tensors on one "
-                         f"device, got {x.device} and {y.device}")
-    if x.dtype != torch.int32 or y.dtype != torch.int32:
-        raise TypeError(f"{name}: operands must be int32 limbs")
+    _check_cuda(name, x, y)
     shape = torch.broadcast_shapes(x.shape, y.shape)
     if shape[-1] != NLIMB:
         raise ValueError(f"{name}: last dimension must be {NLIMB}")
@@ -220,6 +279,92 @@ def mulmod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _launch("mulmod", x, y)
 
 
+def aos_view(t: torch.Tensor, shape) -> tuple[torch.Tensor, int, int, int]:
+    """How KA reads operand `t` broadcast to `shape` (..., 8): (tensor,
+    div, outer, inner) with element i of the result at element
+    (i / div) * outer + (i % div) * inner of the tensor, strides in
+    8-limb elements.  Broadcast axes (stride 0), row slices and every
+    strided view whose element axes merge into at most two are read in
+    place; any other operand is a contiguous copy (one more launch)."""
+    v = t.expand(shape)
+    n = math.prod(shape[:-1])
+    if v.stride(-1) != 1 or v.data_ptr() % 16 \
+            or any(st % NLIMB for st in v.stride()[:-1]):
+        v = v.clone(memory_format=torch.contiguous_format)
+    dims: list[tuple[int, int]] = []      # (size, stride), outermost first
+    for size, st in zip(v.shape[:-1], v.stride()[:-1]):
+        if size == 1:
+            continue
+        st //= NLIMB
+        if dims and dims[-1][1] == size * st:
+            dims[-1] = (dims[-1][0] * size, st)
+        else:
+            dims.append((size, st))
+    if len(dims) > 2:
+        v, dims = v.clone(memory_format=torch.contiguous_format), [(n, 1)]
+    if not dims:
+        return v, max(n, 1), 0, 0
+    if len(dims) == 1:
+        return v, max(n, 1), 0, dims[0][1]
+    return v, dims[1][0], dims[0][1], dims[1][1]
+
+
+def _aos_eltwise(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    _check_cuda(name, x, y)
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    if len(shape) == 0 or shape[-1] != NLIMB:
+        raise ValueError(f"{name}: last dimension must be {NLIMB}, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    n = math.prod(shape[:-1])
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if n == 0:
+        return out
+    xv, *xd = aos_view(x, shape)
+    yv, *yd = aos_view(y, shape)
+    kernels.launch("ligero_aos_eltwise", name, x.device, xv.data_ptr(), *xd,
+                   yv.data_ptr(), *yd, out.data_ptr(), n, AOS_MODE[name])
+    LAUNCHES[name] += 1
+    return out
+
+
+def addmod_aos(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """KA: (x + y) mod p over (..., 8) int32 limbs, broadcasting (the
+    carry out of 2^256 dropped)."""
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return addmod_aos_plain(x, y)
+    return _aos_eltwise("addmod_aos", x, y)
+
+
+def submod_aos(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """KA: (x - y) mod p over (..., 8) int32 limbs, broadcasting."""
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return submod_aos_plain(x, y)
+    return _aos_eltwise("submod_aos", x, y)
+
+
+def masked_sum_aos(acc: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """KF: acc (..., 8) + terms[0] + ... + terms[B-1] mod p, terms
+    (B, *acc.shape), added one row at a time in that order, as the
+    reference's loop does, in one launch."""
+    if acc.device.type == "cpu" and terms.device.type == "cpu":
+        return masked_sum_aos_plain(acc, terms)
+    _check_cuda(FOLD, acc, terms)
+    if acc.dim() < 1 or acc.shape[-1] != NLIMB \
+            or tuple(terms.shape[1:]) != tuple(acc.shape):
+        raise ValueError(f"{FOLD}: acc (..., {NLIMB}) and terms (B, "
+                         f"*acc.shape), got {tuple(acc.shape)} and "
+                         f"{tuple(terms.shape)}")
+    n = acc.numel() // NLIMB
+    acc, terms = _aligned(acc), _aligned(terms)
+    out = torch.empty(acc.shape, dtype=torch.int32, device=acc.device)
+    if n == 0:
+        return out
+    kernels.launch("ligero_masked_sum", FOLD, acc.device, acc.data_ptr(),
+                   terms.data_ptr(), out.data_ptr(), n, terms.shape[0])
+    LAUNCHES[FOLD] += 1
+    return out
+
+
 # ---- planar family: plain versions ---------------------------------------
 #
 # Operands are (8, ...) int32 limb planes; a second operand broadcasts over
@@ -239,13 +384,13 @@ def _scalar_planes(s: torch.Tensor, ndim: int) -> torch.Tensor:
 def addmod_planar_plain(x, y):
     """Plain version of KE addmod: (x + y) mod p over limb planes."""
     PLAIN_CALLS["addmod_planar"][x.device.type] += 1
-    return _on_planes(fo.addmod, x, y)
+    return _on_planes(_addmod_chain, x, y)
 
 
 def submod_planar_plain(x, y):
     """Plain version of KE submod: (x - y) mod p over limb planes."""
     PLAIN_CALLS["submod_planar"][x.device.type] += 1
-    return _on_planes(fo.submod, x, y)
+    return _on_planes(_submod_chain, x, y)
 
 
 def mont_mul_planar_plain(x, y):
@@ -294,7 +439,7 @@ def mont_mul_tiled_planar_plain(x, y):
 def mulmod_fma_planar_plain(acc, x, y):
     """Plain version of KE mulmod_fma: (acc + x*y) mod p over limb planes."""
     PLAIN_CALLS[FMA][x.device.type] += 1
-    return _on_planes(fo.addmod, acc, _mulmod_planes(x, y))
+    return _on_planes(_addmod_chain, acc, _mulmod_planes(x, y))
 
 
 def quad_terms_planar_plain(e, tri_idx, pair_idx):
@@ -307,8 +452,8 @@ def quad_terms_planar_plain(e, tri_idx, pair_idx):
                  for i, w in ((tri_idx, 3), (pair_idx, 2)))
     ex, ey, ez = (e.index_select(1, tri[:, i]) for i in range(3))
     px, py = (e.index_select(1, pair[:, i]) for i in range(2))
-    t_ = _on_planes(fo.submod, _mulmod_planes(ex, ey), ez)    # (8, T, n)
-    d_ = _on_planes(fo.submod, px, py)                        # (8, P, n)
+    t_ = _on_planes(_submod_chain, _mulmod_planes(ex, ey), ez)  # (8, T, n)
+    d_ = _on_planes(_submod_chain, px, py)                      # (8, P, n)
     return torch.cat([t_, d_], dim=1)
 
 
@@ -319,15 +464,16 @@ def _dit_stage(x, tw):
     v = x.reshape(NLIMB, x.shape[1], h, 2)
     a, b = v[..., 0], v[..., 1]
     wb = _on_planes(_mont_plain, b, tw[:, None, :])
-    return torch.cat([_on_planes(fo.addmod, a, wb),
-                      _on_planes(fo.submod, a, wb)], dim=2)
+    return torch.cat([_on_planes(_addmod_chain, a, wb),
+                      _on_planes(_submod_chain, a, wb)], dim=2)
 
 
 def _dif_stage(x, tw):
     h = tw.shape[1]
     a, b = x[:, :, :h], x[:, :, h:]
-    s = _on_planes(fo.addmod, a, b)
-    d = _on_planes(_mont_plain, _on_planes(fo.submod, a, b), tw[:, None, :])
+    s = _on_planes(_addmod_chain, a, b)
+    d = _on_planes(_mont_plain, _on_planes(_submod_chain, a, b),
+                   tw[:, None, :])
     return torch.stack([s, d], dim=3).reshape(x.shape)
 
 
@@ -364,12 +510,7 @@ def butterfly_dif_pass_plain(x, tws, t0: int, s: int):
 # ---- planar family: kernel wrappers --------------------------------------
 
 def _check_operands(name: str, *ts: torch.Tensor):
-    dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError(f"{name}: operands must be CUDA tensors on one "
-                         f"device, got {[str(t.device) for t in ts]}")
-    if any(t.dtype != torch.int32 for t in ts):
-        raise TypeError(f"{name}: operands must be int32 limbs")
+    _check_cuda(name, *ts)
     if any(t.dim() < 1 or t.shape[0] != NLIMB for t in ts):
         raise ValueError(f"{name}: operands must be (8, ...) limb planes, "
                          f"got {[tuple(t.shape) for t in ts]}")

@@ -8,9 +8,12 @@ unsigned types, which torch does not support for ``+``, ``>>`` or ``<``.
 
 Every function reproduces its ``ligero_prover_tpu.ops.fieldops`` twin bit
 for bit on every input, canonical or not (carries out of 2^256 are dropped
-exactly where the reference drops them).  ``mont_mul`` and ``mulmod``
-dispatch to :mod:`.fieldmul`, which launches the CUDA kernels for CUDA
-tensors and runs their plain versions for CPU tensors.
+exactly where the reference drops them).  ``addmod``, ``submod``,
+``mont_mul`` and ``mulmod`` dispatch to :mod:`.fieldmul` (KA, K1, K2),
+which launches the CUDA kernels for CUDA tensors and runs their plain
+versions for CPU tensors.  ``negmod``, ``cond_sub``, ``add_cc`` and
+``sub_cc`` stay plain limb chains: neither package calls them at run time
+(only tests do).
 """
 
 from __future__ import annotations
@@ -100,14 +103,15 @@ def cond_sub(x, m_limbs: np.ndarray):
 
 
 def addmod(x, y):
-    s, _ = _add(widen(x), widen(y))   # carry out of 2^256 dropped
-    return narrow(_cond_sub(s, P_INTS))
+    """(x + y) mod p, the carry out of 2^256 dropped (KA on CUDA)."""
+    from . import fieldmul
+    return fieldmul.addmod_aos(x, y)
 
 
 def submod(x, y):
-    d, nb = _sub(widen(x), widen(y))
-    fix, _ = _add(d, P_INTS)
-    return narrow(_select(nb != 0, fix, d))
+    """(x - y) mod p (KA on CUDA tensors)."""
+    from . import fieldmul
+    return fieldmul.submod_aos(x, y)
 
 
 def negmod(x):

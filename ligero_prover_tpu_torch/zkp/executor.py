@@ -56,10 +56,9 @@ def _r2(device) -> torch.Tensor:
 
 
 def _masked_sum(acc, terms):
-    """acc (n, 8) += field-sum over axis 0 of terms (B, n, 8), in order."""
-    for i in range(terms.shape[0]):
-        acc = fo.addmod(acc, terms[i])
-    return acc
+    """acc (n, 8) += field-sum over axis 0 of terms (B, n, 8), in order
+    (one KF launch on CUDA tensors)."""
+    return fm.masked_sum_aos(acc, terms)
 
 
 def _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs):

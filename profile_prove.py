@@ -35,16 +35,10 @@ import sys
 import time
 from pathlib import Path
 
-from chip_smoke import configuration, make_wat, wat_program
+from chip_smoke import configuration, device_time_us as _device_time_us, \
+    make_wat, wat_program
 
 K = 8192
-
-
-def _device_time_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
 
 
 # name -> (USE_PLANAR, USE_MXU, shards: 0 for the single-device executor)

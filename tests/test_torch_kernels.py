@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: K1 (mont_mul), K2 (mulmod), K3
-(column SHA-256 absorb, AoS and planar rows), KB (planar butterfly
+(column SHA-256 absorb, AoS and planar rows), KA (AoS add/sub), KF (the
+verifier's ordered fold), KB (planar butterfly
 passes), KE (planar element-wise ops and quad-terms) and KR digitize
 against their plain PyTorch versions, the golden Python-int model and
 hashlib; the executor (planar, the CUDA default, and AoS) and a whole
@@ -19,7 +20,9 @@ import torch
 from ligero_prover_tpu_torch.field import bn254 as F
 from ligero_prover_tpu_torch.field.limbs import ints_to_limbs, limbs_to_ints
 from ligero_prover_tpu_torch.ops import fieldmul as tfm
+from ligero_prover_tpu_torch.ops import fieldops as tfo
 from ligero_prover_tpu_torch.ops import sha256 as tsha
+from ligero_prover_tpu_torch.zkp import executor as tex
 
 from _torch_helpers import (EDGES, NONCANONICAL, cuda_device, rand_limbs,
                             to_np, to_t)
@@ -480,3 +483,77 @@ def test_renorm_kernels_and_engine_on_the_card(cuda_device):
         tmr.renorm_final(slots.to(torch.int64))
     with pytest.raises(ValueError):
         tmr.renorm_mid(slots, tw.cpu())
+
+
+def _aos_forms(gen, device):
+    """(label, x, y) KA operands on `device` in the forms of the port's
+    call sites, non-canonical, with the edge values in all pairs first."""
+    def t(shape, canonical=False):
+        return to_t(rand_limbs(gen, shape, canonical), device)
+    vals = NONCANONICAL + EDGES
+    xe = to_t(ints_to_limbs([a for a in vals for _ in vals]), device)
+    ye = to_t(ints_to_limbs([b for _ in vals for b in vals]), device)
+    rows = t((16, 2048))
+    return [
+        ("edges in all pairs", xe, ye),
+        ("arena + constant", t((8192,)), t(())),
+        ("const_sub", t((1,)).expand(8192, 8), t((8192,))),
+        ("verifier (16, 192, 8)", t((16, 192)), t((16, 192))),
+        ("DIT lanes and twiddle", rows.reshape(16, 1024, 2, 8)[:, :, 0],
+         t((1024,))),
+        ("DIF halves", rows[:, :1024], rows[:, 1024:]),
+        ("three element axes (copied)", t((3, 4, 5)).permute(1, 0, 2, 3),
+         t((4, 3, 5))),
+    ]
+
+
+@pytest.mark.parametrize("name", list(tfm.AOS_MODE))
+def test_aos_eltwise_kernel_matches_plain(cuda_device, name):
+    kernel, plain = getattr(tfm, name), getattr(tfm, name + "_plain")
+    cases = _aos_forms(np.random.default_rng(len(name) + 3), cuda_device)
+    tfm.reset_counts()
+    for label, x, y in cases:
+        got = kernel(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain(x.cpu(), y.cpu())), label
+    assert tfm.LAUNCHES[name] == len(cases)
+    # the fieldops entry point: one KA launch per call
+    fo_op = getattr(tfo, name.split("_")[0])
+    _, x, y = cases[1]
+    assert torch.equal(fo_op(x, y), kernel(x, y))
+    assert tfm.LAUNCHES[name] == len(cases) + 2
+    assert tfm.PLAIN_CALLS[name]["cuda"] == 0
+
+
+@pytest.mark.parametrize("rows,n", [(0, 192), (1, 192), (2, 192), (16, 192),
+                                    (17, 192), (16, 32768)])
+def test_masked_sum_kernel_matches_plain(cuda_device, rows, n):
+    gen = np.random.default_rng(rows + n)
+    acc = to_t(rand_limbs(gen, (n,), False), cuda_device)
+    terms = to_t(rand_limbs(gen, (rows, n), False), cuda_device)
+    edges = to_t(ints_to_limbs(NONCANONICAL + EDGES), cuda_device)
+    acc[:len(edges)] = edges
+    if rows:
+        terms[:, :len(edges)] = edges.flip(0)
+        terms[:, -2:] = -1                     # 2^256 - 1: every add carries
+    tfm.reset_counts()
+    got = tex._masked_sum(acc, terms)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tfm.masked_sum_aos_plain(acc.cpu(),
+                                                           terms.cpu()))
+    assert tfm.LAUNCHES["masked_sum_aos"] == 1
+    assert tfm.PLAIN_CALLS["masked_sum_aos"]["cuda"] == 0
+
+
+def test_aos_kernels_reject_bad_operands(cuda_device):
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfm.addmod_aos(x, x.to(torch.int64))
+    with pytest.raises(ValueError):
+        tfm.submod_aos(x, x.cpu())
+    with pytest.raises(ValueError):
+        tfm.addmod_aos(x[:, :7], x[:, :7])
+    with pytest.raises(ValueError):                # terms must be (B, *acc)
+        tfm.masked_sum_aos(x, x[None, :3])
+    with pytest.raises(ValueError):
+        tfm.masked_sum_aos(x, x[None].cpu())

@@ -363,6 +363,12 @@ def test_kernels_follow_the_tensor_device(cuda_device):
          lambda: tsha.absorb_stream_planar_plain(
              sha[0].cpu(), sha[1].cpu(), False, rows.cpu(), 2)[0]),
         (lambda: mr.digitize(x), lambda: mr.digitize_plain(x.cpu())),
+        (lambda: tfm.addmod_aos(aos, aos[0]), lambda: tfm.addmod_aos_plain(
+            aos.cpu(), aos[0].cpu())),
+        (lambda: tfm.submod_aos(aos[:1].expand(64, 8, 8), aos),
+         lambda: tfm.submod_aos_plain(aos[:1].cpu(), aos.cpu())),
+        (lambda: tfm.masked_sum_aos(aos[0], aos),
+         lambda: tfm.masked_sum_aos_plain(aos[0].cpu(), aos.cpu())),
     ]
     with torch.cuda.device(0):
         for kernel, plain in calls:
