@@ -12,9 +12,12 @@ passes, beside the one-stage-per-launch composition; K1 at the AoS
 butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
 rows, the verifier's 192 columns) also at their small calls, beside the
 launch floor of an empty kernel with the same grid; KA (AoS add/sub) at
-the vbn254fr arena's constant calls, its broadcast-first ``const_sub`` and
-the verifier's rows, and KF (the ordered fold) at the verifier's and the
-AoS check's sums, beside their floors; one invmod ladder of
+the vbn254fr arena's calls (the slot written in place, a host constant by
+value), the older forms (its broadcast-first ``const_sub``, a constant on
+the card) and the verifier's rows, and KF (the ordered fold) fused with
+its products at the verifier's and the AoS check's sums, beside their
+floors and the K2 + fold pair it replaced, and as the fold of given rows;
+one invmod ladder of
 K1 launches against the plain ladder; KE mont_mul at the check's three
 calls and quad-terms beside the nine launches it replaced; KR digitize on
 the engine's AoS rows read in place and on planar limbs, and KE
@@ -99,7 +102,8 @@ PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
             "butterfly_dif": 164, "mont_mul_planar": 164,
             "mulmod_planar": 328, "quad_terms_planar": 328,
             "mont_mul_scalar_planar": 164, "mont_mul_tiled_planar": 164,
-            "mulmod_fma_planar": 328, "renorm_final": 108,
+            "mulmod_fma_planar": 328, "masked_mulsum_aos": 328,
+            "renorm_final": 108,
             "renorm_pack": 108, "renorm_mid": 272}
 # One SHA-256 compression, each operation one instruction (a rotate one
 # funnel shift, a 3-input xor/choose/majority one LOP3, a 2- or 3-input add
@@ -126,9 +130,17 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 SASS_NAME = {
     # K1 with its 32-bit index (below 2^31 elements)
     "mont_mul": "mont_mul_kernelIjE", "mulmod": "mulmod_kernel",
-    # KA's two modes and KF
-    "addmod_aos": "addsub_kernelILi0E", "submod_aos": "addsub_kernelILi1E",
+    # KA's two modes with both operands read (the verifier's), and with a
+    # host constant by value as y (the arena's add_const) or as x
+    # (const_sub); KF's fold of given rows and its fused form (a row
+    # scalar y, the code and quad sums; full y, the linear sum)
+    "addmod_aos": "addsub_kernelILi0ELi0E",
+    "submod_aos": "addsub_kernelILi1ELi0E",
+    "addmod_aos_const": "addsub_kernelILi0ELi2E",
+    "submod_aos_const_first": "addsub_kernelILi1ELi1E",
     "masked_sum_aos": "masked_sum_kernel",
+    "masked_mulsum_aos": "masked_mulsum_kernelILb0E",
+    "masked_mulsum_aos_full": "masked_mulsum_kernelILb1E",
     # K3 at the commit step's tile (128 columns per CTA) and at the
     # verifier's (32): both roles in one function, one compression each
     "sha256_absorb": "absorb_tile_kernelILb0ELi128E",
@@ -352,6 +364,21 @@ def k2_grid(n: int) -> tuple[int, int]:
     while threads > 32 and -(-n // threads) < SMS:
         threads //= 2
     return -(-n // threads), threads
+
+
+# csrc/fieldmul.cu kMulsumLanes, kMulsumLanesFull, kMulsumSmem
+MULSUM_LANES, MULSUM_LANES_FULL, MULSUM_SMEM = 16, 4, 48 * 1024
+
+
+def mulsum_grid(n: int, rows: int) -> tuple[int, int, int, int, int]:
+    """Fused KF's (blocks, threads, cols, lanes, chunk) for n columns and
+    B = rows, as ``mulsum_geom`` in csrc/fieldmul.cu chooses them."""
+    cols = 32
+    while cols > 1 and -(-n // cols) < SMS:
+        cols //= 2
+    chunk = min(max(rows, 1), MULSUM_SMEM // (32 * cols))
+    lanes = min(chunk, MULSUM_LANES_FULL if cols == 32 else MULSUM_LANES)
+    return -(-n // cols), cols * lanes, cols, lanes, chunk
 
 
 RUN_THREADS, RUN_UNITS = 128, 2    # csrc/planar.cu kRunThreads, kRunUnits
@@ -679,11 +706,13 @@ def check_aos_kernels(device, gen, lib, stream, results):
 
 
 def check_limb_kernels(device, gen, lib, stream, results):
-    """KA (addmod/submod) and KF (the ordered fold) at the calls of the
-    planar path, on canonical, edge (all pairs of ``edge_limbs``) and
-    non-canonical operands (limbs up to 2^256 - 1, sums that carry out of
-    2^256), against their plain versions on the card; timed beside the
-    launch floor at their grid."""
+    """KA (addmod/submod) and KF (the ordered fold, fused with its
+    products and of given rows) at the calls of the planar path, on
+    canonical, edge (all pairs of ``edge_limbs``) and non-canonical
+    operands (limbs up to 2^256 - 1, sums that carry out of 2^256),
+    against their plain versions on the card; timed beside the launch
+    floor at their grid, fused KF also beside the K2 + fold pair it
+    replaced."""
     import torch
     from ligero_prover_tpu_torch import kernels
     from ligero_prover_tpu_torch.ops import fieldmul as fm
@@ -702,13 +731,15 @@ def check_limb_kernels(device, gen, lib, stream, results):
         yv, *yd = fm.aos_view(y, shape)
         return launches_ms(lambda xv, yv, out: kernels.check(
             lib.ligero_aos_eltwise(xv.data_ptr(), *xd, yv.data_ptr(), *yd,
-                                   out.data_ptr(), n, fm.AOS_MODE[name],
-                                   stream), name),
+                                   None, 0, out.data_ptr(), n,
+                                   fm.AOS_MODE[name], stream), name),
             xv, yv, torch.empty(shape, dtype=torch.int32, device=device))
 
     # (label, x shape, y shape, x expanded to the result first): the
-    # arena's x +- constant and constant - x (const_sub), the verifier's
-    # (T, 192, 8) and mask (192, 8) rows, the prove's mask row (n, 8)
+    # arena's x +- constant and constant - x (const_sub) with the constant
+    # on the card and a new result (the form before the arena wrote in
+    # place), the verifier's (T, 192, 8) and mask (192, 8) rows, the
+    # prove's mask row (n, 8)
     calls = [("arena + constant", (FULL_K,), (), False),
              ("const_sub", (1,), (FULL_K,), True),
              ("verifier", (16, 192), (16, 192), False),
@@ -738,9 +769,7 @@ def check_limb_kernels(device, gen, lib, stream, results):
             bnd = bound(name, 32 * (math.prod(xs) + math.prod(ys) + size),
                         size)
             plain_ms = cuda_ms(lambda: plain(x, y), 3)
-            main = (name, label) in (("addmod_aos", "arena + constant"),
-                                     ("submod_aos", "verifier"))
-            if main:
+            if (name, label) == ("submod_aos", "verifier"):
                 report(results, name, f"{label} {tuple(shape)}, canonical, "
                        "non-canonical and edge pairs", err, times, plain_ms,
                        bnd, floor)
@@ -756,19 +785,86 @@ def check_limb_kernels(device, gen, lib, stream, results):
                 f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
             require(err == 0, f"{name} at the {label}'s shape equals its "
                     "plain version")
+    check_ka_in_place(device, gen, lib, stream, results)
+    check_fold(device, gen, lib, stream, results)
+    check_mulsum(device, gen, lib, stream, results)
 
-    # KF at the verifier's (16, 192, 8) and the AoS check's (16, 32768, 8)
-    # sums; B = 0, 1 and 17 checked beside
-    name = "masked_sum_aos"
+
+def check_ka_in_place(device, gen, lib, stream, results):
+    """KA as the arena calls it: the (8192, 8) slot written in place (out
+    is x, y or both) and a host constant by value (x + c, x - c, c - x,
+    into x); the arena's add_const (x + c into x) times as addmod's row."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    k = FULL_K
+    edges = edge_limbs(device)
+    for name in fm.AOS_MODE:
+        kernel = getattr(fm, name)
+        plain = getattr(fm, name + "_plain")
+        err = 0
+        for canonical in (True, False):
+            x = random_limbs(gen, (k,), device, canonical)
+            y = random_limbs(gen, (k,), device, canonical)
+            x[:6] = edges
+            y[:6] = edge_limbs(device, reverse=True)
+            for c in (random_limbs(gen, (), "cpu", canonical),
+                      edge_limbs("cpu")[-1], edge_limbs("cpu")[3]):
+                for args, slot in (((x, y), 0), ((x, y), 1), ((x, x), 0),
+                                   ((x, c), 0), ((c, x), 1)):
+                    want = plain(*(a.cpu() for a in args))
+                    got = kernel(*args, out=args[slot])
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs_err(got.cpu(), want))
+        x = random_limbs(gen, (k,), device, True)
+        c = random_limbs(gen, (), "cpu", True)
+        times = launches_ms(lambda xs: kernels.check(
+            lib.ligero_aos_eltwise(xs.data_ptr(), k, 0, 1, None, 1, 0, 0,
+                                   c.data_ptr(), 2, xs.data_ptr(), k,
+                                   fm.AOS_MODE[name], stream), name), x)
+        floor = floor_ms(lib, stream, *k2_grid(k))
+        bnd = bound(name, 32 * (2 * k + 1), k)
+        xp, cd = x.clone(), c.to(device)
+        plain_ms = cuda_ms(lambda: xp.copy_(plain(xp, cd)), 3)
+        sign = "+" if name == "addmod_aos" else "-"
+        label = (f"arena in place ({k}, 8) {sign} constant by value, into "
+                 "the slot; out = x, y or both, c - x; canonical, "
+                 "non-canonical and edge limbs")
+        if name == "addmod_aos":
+            report(results, name, label, err, times, plain_ms, bnd, floor)
+            continue
+        CARD[f"{name} arena in place"] = {"ms": times[0], "hot_ms": times[1],
+                                          "floor_ms": floor,
+                                          "bound_ms": bnd[0],
+                                          "plain_ms": plain_ms}
+        log(f"phase 3: {name} {label}: max_abs_err={err} kernel_ms="
+            f"{times[0]:.4f} (operands in L2: {times[1]:.4f}) floor_ms="
+            f"{floor:.4f} plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} "
+            f"({bnd[1]})")
+        require(err == 0, f"{name} in place equals its plain version")
+
+
+def check_fold(device, gen, lib, stream, results):
+    """KF's fold of given rows (no caller on the main path since fused
+    KF) at the verifier's (16, 192, 8) and the AoS check's
+    (16, 32768, 8); B = 0, 1 and 17 checked beside."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    edges = edge_limbs(device)
+    name = fm.FOLD
     for label, rows, n in (("verifier", 16, 192),
                            ("AoS check", 16, 4 * FULL_K)):
-        acc, terms = limbs((n,)), limbs((rows, n))
-        accw, termsw = limbs((n,), False), limbs((rows, n), False)
+        acc, terms = (random_limbs(gen, s, device, True)
+                      for s in ((n,), (rows, n)))
+        accw, termsw = (random_limbs(gen, s, device, False)
+                        for s in ((n,), (rows, n)))
         accw[:6] = edges
         termsw[:, :6] = edge_limbs(device, reverse=True)
         termsw[:, -2:] = -1                 # 2^256 - 1: every add carries
         cases = [(acc, terms), (accw, termsw), (accw, termsw[:0]),
-                 (accw, termsw[:1]), (accw, limbs((17, n), False))]
+                 (accw, termsw[:1]),
+                 (accw, random_limbs(gen, (17, n), device, False))]
         err = compare_cases(fm.masked_sum_aos, fm.masked_sum_aos_plain,
                             cases)
         out = torch.empty_like(acc)
@@ -787,9 +883,97 @@ def check_limb_kernels(device, gen, lib, stream, results):
                                    "floor_ms": floor, "bound_ms": bnd[0],
                                    "plain_ms": plain_ms}
         log(f"phase 3: {name} at the {label}'s ({rows}, {n}, 8), grid "
-            f"{k2_grid(n)}: max_abs_err={err} kernel_ms={times[0]:.4f} "
-            f"(operands in L2: {times[1]:.4f}) floor_ms={floor:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            f"{k2_grid(n)}: max_abs_err={err} "
+            f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+            f"floor_ms={floor:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        require(err == 0, f"{name} at the {label}'s shape equals its plain "
+                "version")
+
+
+# fused KF's calls: (label, B, n, y full) -- the verifier's code and quad
+# sums (a row scalar), its linear sum (full y), the AoS check's code sum
+MULSUM_CALLS = (("verifier, row scalar", 16, 192, False),
+                ("verifier, full y", 16, 192, True),
+                ("AoS check, row scalar", 16, 4 * FULL_K, False))
+
+
+def check_mulsum(device, gen, lib, stream, results):
+    """Fused KF at MULSUM_CALLS on random, edge and non-canonical acc, x
+    and y, B = 0, 1, 16, 17 and (at 4,224 columns, 32 a CTA) 60 rows in
+    two chunks; timed beside its floor and beside the K2 + fold-only KF
+    pair it replaced (K2 on y expanded to x's shape, as K2's wrapper
+    expanded a row scalar), in this run."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    name = fm.MULSUM
+
+    def operands(rows, n, full, canonical):
+        acc = random_limbs(gen, (n,), device, canonical)
+        x = random_limbs(gen, (rows, n), device, canonical)
+        y = random_limbs(gen, (rows, n if full else 1), device, canonical)
+        if not canonical:
+            acc[:6] = edge_limbs(device)
+            if rows:
+                x[:, :6] = edge_limbs(device)
+                x[:, -2:] = -1
+                y[:, :min(6, y.shape[1])] = \
+                    edge_limbs(device, reverse=True)[:y.shape[1]]
+        return acc, x, y
+
+    for label, rows, n, full in MULSUM_CALLS:
+        cases = [operands(rows, n, full, True),
+                 operands(rows, n, full, False)]
+        if n == 192:
+            cases += [operands(b, n, full, False) for b in (0, 1, 17)]
+        else:
+            cases += [operands(60, 4224, full, False)]
+        err = compare_cases(fm.masked_mulsum_aos, fm.masked_mulsum_aos_plain,
+                            cases)
+        acc, x, y = cases[0]
+        out = torch.empty_like(acc)
+        times = launches_ms(lambda a, u, v, o: kernels.check(
+            lib.ligero_masked_mulsum(a.data_ptr(), u.data_ptr(),
+                                     v.data_ptr(), o.data_ptr(), n, rows,
+                                     int(full), stream), name),
+            acc, x, y, out)
+        yx = y.expand(x.shape).contiguous()
+        prod = torch.empty_like(x)
+
+        def pair(a, u, v, p, o):
+            kernels.check(lib.ligero_mont_mul(u.data_ptr(), v.data_ptr(),
+                                              p.data_ptr(), rows * n,
+                                              rows * n, 1, stream), "mulmod")
+            kernels.check(lib.ligero_masked_sum(a.data_ptr(), p.data_ptr(),
+                                                o.data_ptr(), n, rows,
+                                                stream), fm.FOLD)
+        pair_times = launches_ms(pair, acc, x, yx, prod, out)
+        grid = mulsum_grid(n, rows)
+        floor = floor_ms(lib, stream, *grid[:2])
+        # acc, x and y read once, out written once; one mulmod a product
+        bnd = bound(name, 32 * (2 * n + x.numel() // 8 + y.numel() // 8),
+                    rows * n)
+        plain_ms = cuda_ms(lambda: fm.masked_mulsum_aos_plain(acc, x, y), 3)
+        detail = (f"({rows}, {n}, 8), y {tuple(y.shape)}, grid {grid[:2]} "
+                  f"(cols, lanes, chunk {grid[2:]}); pair K2 + fold "
+                  f"{pair_times[0]:.4f} ms (in L2: {pair_times[1]:.4f})")
+        CARD[f"{name} {label}"] = {"ms": times[0], "hot_ms": times[1],
+                                   "floor_ms": floor, "bound_ms": bnd[0],
+                                   "plain_ms": plain_ms,
+                                   "pair_ms": pair_times[0],
+                                   "pair_hot_ms": pair_times[1],
+                                   "max_abs_err": err}
+        if label == MULSUM_CALLS[0][0]:
+            report(results, name, f"{label} {detail}; B = 0, 1, 16, 17; "
+                   "canonical, non-canonical and edge limbs", err, times,
+                   plain_ms, bnd, floor)
+            results[name]["pair_ms"] = pair_times[0]
+            continue
+        log(f"phase 3: {name} at the {label}'s {detail}: max_abs_err={err} "
+            f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+            f"floor_ms={floor:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         require(err == 0, f"{name} at the {label}'s shape equals its plain "
                 "version")
 
@@ -1608,9 +1792,9 @@ def plain_on_cuda() -> dict:
             {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS, **mr.PLAIN_CALLS}.items()}
 
 
-# KA and KF: the arena's and the mask step's adds (both paths), the
+# KA and fused KF: the arena's and the mask step's adds (both paths), the
 # verifier's submods and sums, the AoS check's sums and the AoS codec
-LIMB_KERNELS = ("addmod_aos", "submod_aos", "masked_sum_aos")
+LIMB_KERNELS = ("addmod_aos", "submod_aos", "masked_mulsum_aos")
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
                   "mont_mul_planar", "quad_terms_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar",
@@ -1627,9 +1811,10 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
-def device_kernels(fn) -> tuple[int, float]:
-    """(device kernels, device seconds) of one call of `fn` under
-    ``torch.profiler``, synchronised at its end."""
+def device_kernels(fn) -> tuple[int, float, int]:
+    """(device ops, device seconds, memcpys among the ops) of one call of
+    `fn` under ``torch.profiler``, synchronised at its end: every device
+    row of ``key_averages()``, kernels and copies (``Memcpy ...``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1639,7 +1824,8 @@ def device_kernels(fn) -> tuple[int, float]:
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(e.count for e in dev), \
-        sum(device_time_us(e) for e in dev) / 1e6
+        sum(device_time_us(e) for e in dev) / 1e6, \
+        sum(e.count for e in dev if e.key.startswith("Memcpy"))
 
 
 def prove_full(device, phase: str, planar: bool, rounds: int,
@@ -1702,6 +1888,9 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             f"({sum(proved.values()) / res.num_rows:.2f} per row), of the "
             f"verify {verified} "
             f"({sum(verified.values()) / res.num_rows:.2f} per row)")
+        log(f"{phase}: {label} verify: K2 (mulmod) {verified.get('mulmod', 0)}"
+            f" launches, fused KF {verified.get(fm.MULSUM, 0)}, fold-only "
+            f"KF {verified.get(fm.FOLD, 0)}")
         require(res.ok, f"{label} prove self-check")
         require(vres.ok, f"port verifier accepts the {label} proof")
         path = (PLANAR_KERNELS if planar else AOS_KERNELS + LIMB_KERNELS) \
@@ -1718,18 +1907,20 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             require(not bad.ok, "tampered proof rejected")
         if profile:
             rows = res.num_rows
-            kp, tp = device_kernels(lambda: prove(
+            kp, tp, mp = device_kernels(lambda: prove(
                 prog, geometry=geo, encoding_seed=bytes(32), device=device))
-            kv, tv = device_kernels(lambda: verify(
+            kv, tv, mv = device_kernels(lambda: verify(
                 prog, res.proof, geometry=geo, device=device))
             CARD["device_kernels"] = {
                 "rows": rows, "prove": kp, "prove_per_row": kp / rows,
-                "prove_device_s": tp, "verify": kv,
-                "verify_per_row": kv / rows, "verify_device_s": tv}
+                "prove_memcpys": mp, "prove_device_s": tp, "verify": kv,
+                "verify_per_row": kv / rows, "verify_memcpys": mv,
+                "verify_device_s": tv}
             log(f"{phase}: {label} torch.profiler: prove {kp} device "
-                f"kernels ({kp / rows:.3f} per row, {tp:.4f} s device "
-                f"time), verify {kv} ({kv / rows:.3f} per row, {tv:.4f} s "
-                f"device time)")
+                f"ops ({kp / rows:.3f} per row; {mp} memcpys, "
+                f"{mp / rows:.3f} per row; {tp:.4f} s device time), verify "
+                f"{kv} ({kv / rows:.3f} per row; {mv} memcpys, "
+                f"{mv / rows:.3f} per row; {tv:.4f} s device time)")
     return launches, res.proof
 
 
@@ -1775,7 +1966,7 @@ SHARDS = 4
 # the sharded phases prove and do not verify: no submod (make_wat has
 # none) and no fold (the verifier's and the AoS check's)
 SHARDED_KERNELS = tuple(k for k in PLANAR_KERNELS
-                        if k not in ("submod_aos", "masked_sum_aos")) \
+                        if k not in ("submod_aos", "masked_mulsum_aos")) \
     + ("mont_mul_tiled_planar", "mulmod")
 
 
@@ -2119,9 +2310,12 @@ def main() -> int:
         # no caller on any path of either package: launched in phase 3 only
         "renorm_pack": ("renorm.cu", "ops/pallas/mxu_renorm.py:139"),
         # XLA ops of the reference, not Pallas kernels: fo.addmod/submod
-        # and the verifier's _masked_sum loop
+        # and the verifier's _masked_sum loop, fused with the fo.mulmod
+        # product its callers hand it (zkp/executor.py:145-149, 272-274,
+        # 307-308); the fold of given rows has no caller since: phase 3
         "addmod_aos": ("fieldmul.cu", "ops/fieldops.py:100"),
         "submod_aos": ("fieldmul.cu", "ops/fieldops.py:106"),
+        "masked_mulsum_aos": ("fieldmul.cu", "zkp/executor.py:108"),
         "masked_sum_aos": ("fieldmul.cu", "zkp/executor.py:108"),
     }
     table = []

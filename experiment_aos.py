@@ -14,7 +14,8 @@ both in turns.  Each run is a process of its own that imports the port and
 k=8192, planar path: proves and verifies once to warm up; takes one
 unprofiled prove wall and verify wall, with the wrappers' launch counts
 of each; then one prove and one verify under ``torch.profiler`` (device
-kernels, device seconds, the ten device ops with the most launches).
+kernels and copies, device seconds, the memcpys among them, the ten
+device ops with the most launches).
 Prints one JSON line per run and writes them all to ``--out``.
 """
 
@@ -73,7 +74,8 @@ def one_run(tree: Path, rounds: int) -> dict:
                                getattr(e, "self_cuda_time_total", 0.0)))
                  for e in dev)
         top = sorted(dev, key=lambda e: e.count, reverse=True)[:10]
-        return out, sum(e.count for e in dev), us / 1e6, \
+        memcpys = sum(e.count for e in dev if e.key.startswith("Memcpy"))
+        return out, sum(e.count for e in dev), us / 1e6, memcpys, \
             [(e.key[:60], e.count) for e in top]
 
     with cs.configuration(True):
@@ -95,9 +97,9 @@ def one_run(tree: Path, rounds: int) -> dict:
         verify_s = time.perf_counter() - t0
         verified = {k: v - proved[k] for k, v in counts().items()
                     if v != proved[k]}
-        _, kp, tp, top_p = profiled(lambda: prove(
+        _, kp, tp, mp, top_p = profiled(lambda: prove(
             prog, geometry=geo, encoding_seed=bytes(32), device="cuda"))
-        vres, kv, tv, top_v = profiled(lambda: verify(
+        vres, kv, tv, mv, top_v = profiled(lambda: verify(
             prog, res.proof, geometry=geo, device="cuda"))
     rows = res.num_rows
     assert res.ok and ok and vres.ok
@@ -106,8 +108,10 @@ def one_run(tree: Path, rounds: int) -> dict:
             "prove_launches": {k: v for k, v in proved.items() if v},
             "verify_launches": verified,
             "prove_device_kernels": kp, "prove_kernels_per_row": kp / rows,
-            "prove_device_s": tp, "verify_device_kernels": kv,
+            "prove_device_s": tp, "prove_memcpys": mp,
+            "prove_memcpys_per_row": mp / rows, "verify_device_kernels": kv,
             "verify_kernels_per_row": kv / rows, "verify_device_s": tv,
+            "verify_memcpys": mv, "verify_memcpys_per_row": mv / rows,
             "prove_top_by_launches": top_p, "verify_top_by_launches": top_v,
             "proof_bytes": len(res.proof),
             "proof_sha256": hashlib.sha256(res.proof).hexdigest()}

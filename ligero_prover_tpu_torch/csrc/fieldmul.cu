@@ -1,6 +1,6 @@
 // BN254-Fr arithmetic for Hopper over AoS (N, 8) little-endian u32 limbs:
 // kernels K1 (mont_mul), K2 (mulmod), KA (addmod/submod) and KF (the
-// verifier's ordered fold, below).
+// verifier's ordered fold, of given rows or of fresh products, below).
 //
 // Replaces the Pallas TPU kernels _k_mont_mul and _k_mulmod
 // (ligero_prover_tpu/ops/pallas/fieldmul.py:260,264, launched through
@@ -54,13 +54,29 @@
 // reference's bits.  Their main-path calls are small (the vbn254fr
 // arena's (8192, 8) +- (1, 8) rows, the verifier's (192, 8) sums), bound
 // by the launch and one dependent load; the AoS check's fold of
-// (16, 32768, 8) rows is bound by its bytes.  So: one element (KA) or one
-// column (KF) per thread, 16-byte loads, K2's block rule.  KA reads each
-// operand through a two-level view (aos_elem), so broadcast constants,
-// twiddles and the strided halves of the AoS codec are read in place and
-// never expanded.  KF adds the B rows of a column in order, as the
-// reference's loop does: a reordered sum is not the same function on
-// non-canonical rows, where a carry out of 2^256 is dropped.
+// (16, 32768, 8) rows is bound by its bytes.  KA: one element a thread,
+// 16-byte loads, K2's block rule; each operand read through a two-level
+// view (aos_elem), so broadcast constants, twiddles and the strided halves
+// of the AoS codec are read in place and never expanded.  The arena's
+// calls write their slot in place (the output may be an operand, element
+// for element) and take a host constant by value, as a kernel argument
+// (Elem): no copy into the slot, no upload of the constant, one load
+// stream fewer.
+//
+// KF runs in two forms.  The fold of given rows (masked_sum_kernel, one
+// column a thread) and, on every call of the main path, the fold of fresh
+// products (masked_mulsum_kernel): out = acc + x[0]*y[0] + ... +
+// x[B-1]*y[B-1] mod p, each product K2's mulmod_cc, added one at a time in
+// the order b = 0 .. B-1 as the reference's loop adds its rows.  The order
+// is part of the function: on non-canonical rows a reordered sum drops
+// another carry out of 2^256.  At the verifier's (16, 192, 8) the fused
+// form is bound by latency: one round trip to memory, one product's
+// dependent chain, B dependent adds.  So a CTA of C columns x R row-lanes
+// first computes its chunk's products, every (row, column) on a thread of
+// its own with all loads in flight at once, into shared memory; then one
+// thread a column adds them in order from there (mulsum_geom chooses C, R
+// and the chunk; the whole row set is one chunk when it fits).  The
+// products never travel through device memory.
 
 #include "field.cuh"
 
@@ -144,15 +160,33 @@ LIGERO_HD unsigned long long aos_elem(const AosView& v, uint32_t i) {
          + (unsigned long long)(i - q * v.div) * v.inner;
 }
 
+// One element's 8 limbs as a kernel argument: KA's host constant.
+struct Elem {
+  uint32_t w[8];
+};
+
+// Which operand of KA is its host constant: none, x or y.
+enum { kNoConst = 0, kConstX = 1, kConstY = 2 };
+
 // Element i < n of KA: out[i] = x + y mod p (kMode 0) or x - y mod p
-// (kMode 1), x and y read through their views.
-template <int kMode>
+// (kMode 1), x and y read through their views, or the one kConst names
+// taken from c.  Both operands are loaded before the store, so out may be
+// x or y element for element.
+template <int kMode, int kConst>
 LIGERO_HD void aos_eltwise_at(const uint32_t* x, const AosView& xv,
                               const uint32_t* y, const AosView& yv,
-                              uint32_t* out, uint32_t i) {
+                              const Elem& c, uint32_t* out, uint32_t i) {
   uint32_t a[8], b[8], r[8];
-  load_elem(x + 8ull * aos_elem(xv, i), a);
-  load_elem(y + 8ull * aos_elem(yv, i), b);
+  if (kConst == kConstX) {
+    for (int l = 0; l < 8; ++l) a[l] = c.w[l];
+  } else {
+    load_elem(x + 8ull * aos_elem(xv, i), a);
+  }
+  if (kConst == kConstY) {
+    for (int l = 0; l < 8; ++l) b[l] = c.w[l];
+  } else {
+    load_elem(y + 8ull * aos_elem(yv, i), b);
+  }
   if (kMode == 0)
     add_mod(a, b, r);
   else
@@ -177,9 +211,111 @@ LIGERO_HD void masked_sum_at(const uint32_t* acc, const uint32_t* terms,
   store_elem(out + 8ull * i, a);
 }
 
-// K2's, K1's, KA's and KF's threads per block: the largest of 256, 128,
-// 64, 32 that still gives every SM of the card (132) a block, else one
-// warp.
+// The fused KF's geometry: a CTA of `cols` columns x `lanes` row-lanes
+// (blockDim (cols, lanes)); a phase holds the products of `chunk` rows in
+// shared memory, lane r computing rows r, r + lanes, ... of the chunk.
+struct MulsumGeom {
+  uint32_t n, rows, cols, lanes, chunk;
+};
+
+enum {
+  kMulsumLanes = 16,         // row-lanes a CTA, at most
+  kMulsumLanesFull = 4,      // the same once 32-column CTAs fill the card
+  kMulsumSmem = 48 * 1024,   // shared bytes a CTA, at most (no opt-in)
+  kMulsumMaxThreads = 512
+};
+
+// The geometry of n columns and B = rows (experiment_kf_mulsum.py swept
+// it at the main path's calls on an H100 SXM): the widest C of 32, 16, .., 1 that still
+// gives every SM (132) a CTA; the whole row set as one chunk where its
+// products fit in kMulsumSmem; min(chunk, 16) lanes, one product a thread
+// at B <= 16, where a call is bound by its latency (the verifier's 192
+// columns: 16 lanes 0.0050 ms, 8 lanes 0.0063), but 4 lanes where 32-column
+// CTAs fill the card (the AoS check's 32,768 columns: 0.0267 ms, 16 lanes
+// 0.0289).
+static inline MulsumGeom mulsum_geom(uint32_t n, uint32_t rows) {
+  MulsumGeom g{n, rows, 32u, 1u, 1u};
+  while (g.cols > 1u && (n + g.cols - 1u) / g.cols < 132u) g.cols >>= 1;
+  const uint32_t b = rows > 1u ? rows : 1u;
+  const uint32_t fit = (uint32_t)kMulsumSmem / (32u * g.cols);
+  const uint32_t lanes = g.cols == 32u ? (uint32_t)kMulsumLanesFull
+                                        : (uint32_t)kMulsumLanes;
+  g.chunk = b < fit ? b : fit;
+  g.lanes = g.chunk < lanes ? g.chunk : lanes;
+  return g;
+}
+
+// A chunk's products in shared memory: product (b, c) in slot
+// b * cols + c, limbs 0-3 in the first half of the buffer and 4-7 in the
+// second, so that neighbouring columns move neighbouring 16 bytes.
+LIGERO_HD void store_prod(uint32_t* s, uint32_t half, uint32_t slot,
+                          const uint32_t v[8]) {
+#ifdef __CUDACC__
+  ((uint4*)s)[slot] = make_uint4(v[0], v[1], v[2], v[3]);
+  ((uint4*)(s + half))[slot] = make_uint4(v[4], v[5], v[6], v[7]);
+#else
+  for (int l = 0; l < 4; ++l) {
+    s[4 * slot + l] = v[l];
+    s[half + 4 * slot + l] = v[4 + l];
+  }
+#endif
+}
+
+LIGERO_HD void load_prod(const uint32_t* s, uint32_t half, uint32_t slot,
+                         uint32_t v[8]) {
+#ifdef __CUDACC__
+  const uint4 a = ((const uint4*)s)[slot], b = ((const uint4*)(s + half))[slot];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+#else
+  for (int l = 0; l < 4; ++l) {
+    v[l] = s[4 * slot + l];
+    v[4 + l] = s[half + 4 * slot + l];
+  }
+#endif
+}
+
+// Phase 1 of the chunk from row b0 on thread (c, r) of a CTA, whose
+// column is col: the products x[b, col] * y mod p of rows b0 + r,
+// b0 + r + lanes, ... into shared memory s.  y is (B, n, 8) (kFull) or
+// one element a row, (B, 1, 8).
+template <bool kFull>
+LIGERO_HD void mulsum_products_at(const uint32_t* x, const uint32_t* y,
+                                  const MulsumGeom& g, uint32_t b0,
+                                  uint32_t c, uint32_t r, uint32_t col,
+                                  uint32_t* s) {
+  if (col >= g.n) return;
+  const uint32_t end = g.rows - b0 < g.chunk ? g.rows : b0 + g.chunk;
+  const uint32_t half = 4u * g.chunk * g.cols;
+  for (uint32_t b = b0 + r; b < end; b += g.lanes) {
+    const uint32_t e = b * g.n + col;
+    uint32_t a[8], w[8], t[8];
+    load_elem(x + 8ull * e, a);
+    load_elem(y + 8ull * (kFull ? e : b), w);
+    mulmod_cc(a, w, t);
+    store_prod(s, half, (b - b0) * g.cols + c, t);
+  }
+}
+
+// Phase 2 of the chunk from row b0 for column slot c: its products added
+// to acc one at a time, in row order.
+LIGERO_HD void mulsum_fold_at(const MulsumGeom& g, uint32_t b0, uint32_t c,
+                              const uint32_t* s, uint32_t acc[8]) {
+  const uint32_t end = g.rows - b0 < g.chunk ? g.rows : b0 + g.chunk;
+  const uint32_t half = 4u * g.chunk * g.cols;
+#pragma unroll 4
+  for (uint32_t b = b0; b < end; ++b) {
+    uint32_t t[8], r[8];
+    load_prod(s, half, (b - b0) * g.cols + c, t);
+    add_mod(acc, t, r);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) acc[l] = r[l];
+  }
+}
+
+// K2's, K1's, KA's and the fold-only KF's threads per block: the largest
+// of 256, 128, 64, 32 that still gives every SM of the card (132) a block,
+// else one warp.
 static inline uint32_t mulmod_threads(uint32_t n) {
   uint32_t t = 256u;
   while (t > 32u && (n + t - 1u) / t < 132u) t >>= 1;
@@ -216,23 +352,82 @@ mulmod_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
   if (i < n) mulmod_at(x, y, out, n, y_rows, i);
 }
 
-// KA: one element per thread
-template <int kMode>
+// KA: one element per thread.  No __restrict__: out may be x or y,
+// element for element (each thread loads both operands before its store).
+template <int kMode, int kConst>
 __global__ void __launch_bounds__(256)
-addsub_kernel(const uint32_t* __restrict__ x, AosView xv,
-              const uint32_t* __restrict__ y, AosView yv,
-              uint32_t* __restrict__ out, uint32_t n) {
+addsub_kernel(const uint32_t* x, AosView xv, const uint32_t* y, AosView yv,
+              Elem c, uint32_t* out, uint32_t n) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) aos_eltwise_at<kMode>(x, xv, y, yv, out, i);
+  if (i < n) aos_eltwise_at<kMode, kConst>(x, xv, y, yv, c, out, i);
 }
 
-// KF: one column per thread
+template <int kMode>
+static void launch_addsub(int c_side, uint32_t blocks, uint32_t threads,
+                          cudaStream_t s, const uint32_t* x, AosView xv,
+                          const uint32_t* y, AosView yv, const Elem& c,
+                          uint32_t* out, uint32_t n) {
+  if (c_side == kConstX)
+    addsub_kernel<kMode, kConstX><<<blocks, threads, 0, s>>>(x, xv, y, yv,
+                                                            c, out, n);
+  else if (c_side == kConstY)
+    addsub_kernel<kMode, kConstY><<<blocks, threads, 0, s>>>(x, xv, y, yv,
+                                                            c, out, n);
+  else
+    addsub_kernel<kMode, kNoConst><<<blocks, threads, 0, s>>>(x, xv, y, yv,
+                                                             c, out, n);
+}
+
+// KF, the fold of given rows: one column per thread
 __global__ void __launch_bounds__(256)
 masked_sum_kernel(const uint32_t* __restrict__ acc,
                   const uint32_t* __restrict__ terms,
                   uint32_t* __restrict__ out, uint32_t n, uint32_t rows) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) masked_sum_at(acc, terms, out, n, rows, i);
+}
+
+// KF, the fold of fresh products: per chunk, every thread's products into
+// shared memory, then thread (c, 0) adds them to column c's sum in order.
+template <bool kFull>
+__global__ void __launch_bounds__(kMulsumMaxThreads)
+masked_mulsum_kernel(const uint32_t* __restrict__ acc,
+                     const uint32_t* __restrict__ x,
+                     const uint32_t* __restrict__ y,
+                     uint32_t* __restrict__ out, MulsumGeom g) {
+  extern __shared__ uint4 mulsum_smem[];
+  uint32_t* s = (uint32_t*)mulsum_smem;
+  const uint32_t c = threadIdx.x, r = threadIdx.y;
+  const uint32_t col = blockIdx.x * g.cols + c;
+  const bool folds = r == 0u && col < g.n;
+  uint32_t a[8];
+  if (folds) load_elem(acc + 8ull * col, a);
+  for (uint32_t b0 = 0; b0 < g.rows; b0 += g.chunk) {
+    mulsum_products_at<kFull>(x, y, g, b0, c, r, col, s);
+    __syncthreads();
+    if (folds) mulsum_fold_at(g, b0, c, s, a);
+    if (g.rows - b0 > g.chunk) __syncthreads();   // the buffer is reused
+  }
+  if (folds) store_elem(out + 8ull * col, a);
+}
+
+// Launches the fused KF with geometry g (mulsum_geom's, or a sweep's).
+static inline int launch_mulsum(const void* acc, const void* x,
+                                const void* y, void* out, MulsumGeom g,
+                                int y_full, cudaStream_t s) {
+  const dim3 block(g.cols, g.lanes);
+  const uint32_t blocks = (g.n + g.cols - 1u) / g.cols;
+  const size_t smem = 32ull * g.chunk * g.cols;
+  const uint32_t* ap = (const uint32_t*)acc;
+  const uint32_t* xp = (const uint32_t*)x;
+  const uint32_t* yp = (const uint32_t*)y;
+  uint32_t* op = (uint32_t*)out;
+  if (y_full)
+    masked_mulsum_kernel<true><<<blocks, block, smem, s>>>(ap, xp, yp, op, g);
+  else
+    masked_mulsum_kernel<false><<<blocks, block, smem, s>>>(ap, xp, yp, op,
+                                                            g);
+  return (int)cudaGetLastError();
 }
 
 // An empty kernel: the launch floor that chip_smoke.py times beside K2.
@@ -314,24 +509,30 @@ extern "C" int ligero_mont_mul(const void* x, const void* y, void* out,
 
 // KA: out (n, 8) = x + y mod p (mode 0) or x - y mod p (mode 1), element
 // i of x at element (i / x_div) * x_outer + (i % x_div) * x_inner of x
-// (AosView), and y alike.  n below 2^31 (a 32-bit thread index), divs
-// positive, strides not negative; every element 16-byte aligned.  Returns
-// cudaGetLastError().
+// (AosView), and y alike; c_side 1 (2) takes x (y) as the host constant
+// c, 8 words copied here into the kernel's argument (its pointer and
+// view unused).  out may be x or y element for element.  n below 2^31 (a
+// 32-bit thread index), divs positive, strides not negative; every
+// element 16-byte aligned.  Returns cudaGetLastError().
 extern "C" int ligero_aos_eltwise(const void* x, long long x_div,
                                   long long x_outer, long long x_inner,
                                   const void* y, long long y_div,
                                   long long y_outer, long long y_inner,
-                                  void* out, long long n, int mode,
-                                  void* stream) {
+                                  const void* c, int c_side, void* out,
+                                  long long n, int mode, void* stream) {
   if (n <= 0) return 0;
   if (n >= (1ll << 31) || (mode != 0 && mode != 1) || x_div <= 0
       || y_div <= 0 || x_outer < 0 || x_inner < 0 || y_outer < 0
-      || y_inner < 0)
+      || y_inner < 0 || c_side < 0 || c_side > 2
+      || (c_side != 0 && c == nullptr))
     return (int)cudaErrorInvalidValue;
   const ligero_fm::AosView xv =
       ligero_fm::make_aos_view(x_div, x_outer, x_inner, n);
   const ligero_fm::AosView yv =
       ligero_fm::make_aos_view(y_div, y_outer, y_inner, n);
+  ligero_fm::Elem cv{};
+  if (c_side != 0)
+    for (int l = 0; l < 8; ++l) cv.w[l] = ((const uint32_t*)c)[l];
   const uint32_t threads = ligero_fm::mulmod_threads((uint32_t)n);
   const uint32_t blocks = ((uint32_t)n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
@@ -339,11 +540,11 @@ extern "C" int ligero_aos_eltwise(const void* x, long long x_div,
   const uint32_t* yp = (const uint32_t*)y;
   uint32_t* op = (uint32_t*)out;
   if (mode == 0)
-    ligero_fm::addsub_kernel<0><<<blocks, threads, 0, s>>>(
-        xp, xv, yp, yv, op, (uint32_t)n);
+    ligero_fm::launch_addsub<0>(c_side, blocks, threads, s, xp, xv, yp, yv,
+                                cv, op, (uint32_t)n);
   else
-    ligero_fm::addsub_kernel<1><<<blocks, threads, 0, s>>>(
-        xp, xv, yp, yv, op, (uint32_t)n);
+    ligero_fm::launch_addsub<1>(c_side, blocks, threads, s, xp, xv, yp, yv,
+                                cv, op, (uint32_t)n);
   return (int)cudaGetLastError();
 }
 
@@ -363,6 +564,22 @@ extern "C" int ligero_masked_sum(const void* acc, const void* terms,
       (const uint32_t*)acc, (const uint32_t*)terms, (uint32_t*)out,
       (uint32_t)n, (uint32_t)rows);
   return (int)cudaGetLastError();
+}
+
+// KF fused: out (n, 8) = acc (n, 8) + x[0]*y[0] + ... + x[B-1]*y[B-1] mod
+// p, x (B, n, 8), y (B, n, 8) (y_full) or (B, 1, 8), the products added in
+// that order column by column; B = 0 copies acc.  B * n below 2^31; all
+// four contiguous and 16-byte aligned.  Returns cudaGetLastError().
+extern "C" int ligero_masked_mulsum(const void* acc, const void* x,
+                                    const void* y, void* out, long long n,
+                                    long long rows, int y_full,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  if (n >= (1ll << 31) || rows < 0 || rows * n >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  return ligero_fm::launch_mulsum(
+      acc, x, y, out, ligero_fm::mulsum_geom((uint32_t)n, (uint32_t)rows),
+      y_full, (cudaStream_t)stream);
 }
 
 // Launches the empty kernel as blocks x threads.  Returns

@@ -38,12 +38,16 @@ SIGNATURES = {
     # x, y, out, n, y_rows, mode (0 = mont_mul, 1 = mulmod), stream
     "ligero_mont_mul": (_P, _P, _P, _I64, _I64, _I32, _P),
     # x, x_div, x_outer, x_inner, y, y_div, y_outer, y_inner (element i
-    # of each operand at (i / div) * outer + (i % div) * inner), out, n,
-    # mode (0 addmod, 1 submod), stream: KA
+    # of each operand at (i / div) * outer + (i % div) * inner), c (8
+    # host words), c_side (0 none, 1 x is c, 2 y is c), out (may be x or
+    # y element for element), n, mode (0 addmod, 1 submod), stream: KA
     "ligero_aos_eltwise": (_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P,
-                           _I64, _I32, _P),
-    # acc (n, 8), terms (B, n, 8), out (n, 8), n, B, stream: KF
+                           _I32, _P, _I64, _I32, _P),
+    # acc (n, 8), terms (B, n, 8), out (n, 8), n, B, stream: KF's fold
     "ligero_masked_sum": (_P, _P, _P, _I64, _I64, _P),
+    # acc (n, 8), x (B, n, 8), y (B, n, 8) or (B, 1, 8), out (n, 8), n, B,
+    # y_full, stream: KF's fold of the products x*y
+    "ligero_masked_mulsum": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
     # state_in, pending_in, rows, state_out, pending_out, C, B,
     # has_pending, valid_count, planar (rows (8, B, C) instead of
     # (B, C, 8)), tile (columns per CTA: 32 or 128), stream

@@ -1,6 +1,9 @@
 """BN254-Fr field kernels: K1 (``mont_mul``), K2 (``mulmod``), KA
-(``addmod_aos``, ``submod_aos``) and KF (``masked_sum_aos``: acc plus B
-rows, added in order) over AoS (..., 8) limbs, and the planar family over
+(``addmod_aos``, ``submod_aos``: into a new tensor or in place, ``out=``,
+an operand on the host of one element taken by value) and KF
+(``masked_mulsum_aos``: acc plus the B products x*y, added in order, and
+``masked_sum_aos``: acc plus B given rows) over AoS (..., 8) limbs, and the
+planar family over
 (8, ...) limb planes: KB (a pass of s constant-geometry butterfly
 stages, ``butterfly_dit_pass``/``butterfly_dif_pass``;
 ``butterfly_dit``/``butterfly_dif`` are its one-stage case) and KE
@@ -23,10 +26,12 @@ wrappers and, beside each kernel, its plain PyTorch version.  KA and KF
 replace XLA ops of the reference, not Pallas kernels: ``fo.addmod``/
 ``fo.submod`` (``ligero_prover_tpu/ops/fieldops.py:100-111``) and the
 verifier's ``_masked_sum`` loop (``ligero_prover_tpu/zkp/executor.py:
-108-112``); ``ops.fieldops.addmod``/``submod`` dispatch to KA.  Their
-plain versions are the limb chains ``_addmod_chain``/``_submod_chain``,
-which every other plain version here calls by name, so that no plain
-version reaches a kernel on a CUDA tensor.
+108-112``), which fused KF takes with the ``fo.mulmod`` product that each
+of its callers hands it; ``ops.fieldops.addmod``/``submod`` dispatch to
+KA.  Their plain versions are the limb chains ``_addmod_chain``/
+``_submod_chain`` (and ``_mulmod_chain``), which every other plain
+version here calls by name, so that no plain version reaches a kernel on
+a CUDA tensor.
 
 A wrapper runs the plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel (counted in :data:`LAUNCHES`) or raises;
@@ -79,7 +84,9 @@ MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 #                         shared-memory tile (csrc/planar.cu, kLog2Tile)
 AOS_MODE = {"addmod_aos": 0, "submod_aos": 1}   # KA's `mode` argument
 FOLD = "masked_sum_aos"       # KF: acc + the B rows of terms, in order
+MULSUM = "masked_mulsum_aos"  # KF fused: acc + the B products x*y, in order
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *AOS_MODE, FOLD,
+                                 MULSUM,
                                  *STAGES, *PLANAR_MODE, FMA, TILED, QUAD)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 TILED_SHAPES = Counter()  # the tiled mode's launches by (B rows, width w)
@@ -164,10 +171,15 @@ def mont_mul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _mont_plain(x, y)
 
 
+def _mulmod_chain(x, y):
+    """x*y mod p as two Montgomery products, broadcasting."""
+    return _mont_plain(_mont_plain(x, y), to_torch(R2_LIMBS, x.device))
+
+
 def mulmod_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2 (any device, broadcasting)."""
     PLAIN_CALLS["mulmod"][x.device.type] += 1
-    return _mont_plain(_mont_plain(x, y), to_torch(R2_LIMBS, x.device))
+    return _mulmod_chain(x, y)
 
 
 def _addmod_chain(x, y):
@@ -204,6 +216,18 @@ def masked_sum_aos_plain(acc: torch.Tensor,
     PLAIN_CALLS[FOLD][acc.device.type] += 1
     for i in range(terms.shape[0]):
         acc = _addmod_chain(acc, terms[i])
+    return acc
+
+
+def masked_mulsum_aos_plain(acc: torch.Tensor, x: torch.Tensor,
+                            y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of fused KF: the products x*y mod p, then
+    acc + prod[0] + ... + prod[B-1] mod p, one addmod at a time in that
+    order (B = 0: acc itself)."""
+    PLAIN_CALLS[MULSUM][acc.device.type] += 1
+    prods = _mulmod_chain(x, y)
+    for i in range(prods.shape[0]):
+        acc = _addmod_chain(acc, prods[i])
     return acc
 
 
@@ -309,43 +333,114 @@ def aos_view(t: torch.Tensor, shape) -> tuple[torch.Tensor, int, int, int]:
     return v, dims[1][0], dims[0][1], dims[1][1]
 
 
-def _aos_eltwise(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    _check_cuda(name, x, y)
+def host_element(t: torch.Tensor) -> torch.Tensor | None:
+    """`t` as (8,) int32 limbs on the host when it is one element on the
+    CPU (a broadcast view of one counts), else None: KA takes such an
+    operand by value, as a kernel argument, beside an operand on a card."""
+    if t.device.type != "cpu" or t.dim() == 0 or t.shape[-1] != NLIMB \
+            or any(size != 1 and st != 0 for size, st
+                   in zip(t.shape[:-1], t.stride()[:-1])):
+        return None
+    return t[(0,) * (t.dim() - 1)].contiguous()
+
+
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The bytes [first, end) that a view's elements lie in."""
+    first = t.data_ptr()
+    return first, first + t.element_size() * (1 + sum(
+        (size - 1) * st for size, st in zip(t.shape, t.stride())))
+
+
+def check_out(name: str, out: torch.Tensor, shape, device, *operands):
+    """KA's `out`: a contiguous, 16-byte aligned int32 tensor of the result
+    `shape` on `device`, which overlaps an operand only element for
+    element (that operand read at out's own elements).  Raises before
+    anything runs; there is no copy in its place."""
+    if out.dtype != torch.int32 or out.device != torch.device(device) \
+            or tuple(out.shape) != tuple(shape) or not out.is_contiguous() \
+            or out.data_ptr() % 16:
+        raise ValueError(f"{name}: `out` must be a contiguous, 16-byte "
+                         f"aligned int32 {tuple(shape)} tensor on {device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+    if out.numel() == 0:
+        return
+    lo, hi = _span(out)
+    for t in operands:
+        if t.device != out.device or t.numel() == 0:
+            continue
+        t_lo, t_hi = _span(t)
+        if t_lo < hi and lo < t_hi and (
+                t_lo != lo or t.expand(shape).stride() != out.stride()):
+            raise ValueError(f"{name}: `out` overlaps an operand other "
+                             f"than element for element")
+
+
+def _aos_eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
+                 out: torch.Tensor | None) -> torch.Tensor:
+    consts = (host_element(x), host_element(y))
+    side = 1 if consts[0] is not None else 2 if consts[1] is not None else 0
+    cards = [t for t, c in zip((x, y), consts) if c is None]
+    if not cards:
+        raise ValueError(f"{name}: an operand must be on a card, got two "
+                         f"host constants")
+    _check_cuda(name, *cards)
+    if side and consts[side - 1].dtype != torch.int32:
+        raise TypeError(f"{name}: operands must be int32 limbs")
     shape = torch.broadcast_shapes(x.shape, y.shape)
     if len(shape) == 0 or shape[-1] != NLIMB:
         raise ValueError(f"{name}: last dimension must be {NLIMB}, got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
+    dev = cards[0].device
     n = math.prod(shape[:-1])
-    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    else:
+        check_out(name, out, shape, dev, *cards)
     if n == 0:
         return out
-    xv, *xd = aos_view(x, shape)
-    yv, *yd = aos_view(y, shape)
-    kernels.launch("ligero_aos_eltwise", name, x.device, xv.data_ptr(), *xd,
-                   yv.data_ptr(), *yd, out.data_ptr(), n, AOS_MODE[name])
+    views = [(None, 1, 0, 0) if c is not None else aos_view(t, shape)
+             for t, c in zip((x, y), consts)]
+    (xv, *xd), (yv, *yd) = views
+    kernels.launch("ligero_aos_eltwise", name, dev,
+                   None if xv is None else xv.data_ptr(), *xd,
+                   None if yv is None else yv.data_ptr(), *yd,
+                   consts[side - 1].data_ptr() if side else None, side,
+                   out.data_ptr(), n, AOS_MODE[name])
     LAUNCHES[name] += 1
     return out
 
 
-def addmod_aos(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _addsub(name: str, plain, x, y, out):
+    if _on_cpu(x, y, *(() if out is None else (out,))):
+        if out is not None:
+            check_out(name, out, torch.broadcast_shapes(x.shape, y.shape),
+                      "cpu", x, y)
+        return _into(plain(x, y), out)
+    return _aos_eltwise(name, x, y, out)
+
+
+def addmod_aos(x: torch.Tensor, y: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """KA: (x + y) mod p over (..., 8) int32 limbs, broadcasting (the
-    carry out of 2^256 dropped)."""
-    if x.device.type == "cpu" and y.device.type == "cpu":
-        return addmod_aos_plain(x, y)
-    return _aos_eltwise("addmod_aos", x, y)
+    carry out of 2^256 dropped), into `out` when given (which may be x or
+    y: see :func:`check_out`).  An operand of one element on the host
+    beside one on a card is passed by value."""
+    return _addsub("addmod_aos", addmod_aos_plain, x, y, out)
 
 
-def submod_aos(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """KA: (x - y) mod p over (..., 8) int32 limbs, broadcasting."""
-    if x.device.type == "cpu" and y.device.type == "cpu":
-        return submod_aos_plain(x, y)
-    return _aos_eltwise("submod_aos", x, y)
+def submod_aos(x: torch.Tensor, y: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """KA: (x - y) mod p over (..., 8) int32 limbs, broadcasting, with
+    `out` and host constants as for :func:`addmod_aos`."""
+    return _addsub("submod_aos", submod_aos_plain, x, y, out)
 
 
 def masked_sum_aos(acc: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     """KF: acc (..., 8) + terms[0] + ... + terms[B-1] mod p, terms
     (B, *acc.shape), added one row at a time in that order, as the
-    reference's loop does, in one launch."""
+    reference's loop does, in one launch.  No caller on the main path
+    since fused KF (:func:`masked_mulsum_aos`)."""
     if acc.device.type == "cpu" and terms.device.type == "cpu":
         return masked_sum_aos_plain(acc, terms)
     _check_cuda(FOLD, acc, terms)
@@ -362,6 +457,45 @@ def masked_sum_aos(acc: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     kernels.launch("ligero_masked_sum", FOLD, acc.device, acc.data_ptr(),
                    terms.data_ptr(), out.data_ptr(), n, terms.shape[0])
     LAUNCHES[FOLD] += 1
+    return out
+
+
+def mulsum_form(acc: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Fused KF's operand check: acc (..., 8), x (B, *acc.shape) and y
+    either x's shape (True) or one element a row, (B, 1, ..., 1, 8)
+    (False); raises ValueError otherwise."""
+    row = (x.shape[0],) + (1,) * (acc.dim() - 1) + (NLIMB,) \
+        if x.dim() else ()
+    if acc.dim() < 1 or acc.shape[-1] != NLIMB \
+            or tuple(x.shape[1:]) != tuple(acc.shape) \
+            or tuple(y.shape) not in (tuple(x.shape), row):
+        raise ValueError(f"{MULSUM}: acc (..., {NLIMB}), x (B, *acc.shape) "
+                         f"and y x's shape or (B, 1, ..., 1, {NLIMB}), got "
+                         f"{tuple(acc.shape)}, {tuple(x.shape)} and "
+                         f"{tuple(y.shape)}")
+    return tuple(y.shape) == tuple(x.shape)
+
+
+def masked_mulsum_aos(acc: torch.Tensor, x: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    """Fused KF: acc (..., 8) + x[0]*y[0] + ... + x[B-1]*y[B-1] mod p, x
+    (B, *acc.shape), y x's shape or one element a row (B, 1, ..., 1, 8),
+    the products (K2's) added one at a time in row order, as the
+    reference's ``_masked_sum(acc, fo.mulmod(x, y))`` adds them, in one
+    launch."""
+    full = mulsum_form(acc, x, y)
+    if _on_cpu(acc, x, y):
+        return masked_mulsum_aos_plain(acc, x, y)
+    _check_cuda(MULSUM, acc, x, y)
+    n = acc.numel() // NLIMB
+    acc, x, y = _aligned(acc), _aligned(x), _aligned(y)
+    out = torch.empty(acc.shape, dtype=torch.int32, device=acc.device)
+    if n == 0:
+        return out
+    kernels.launch("ligero_masked_mulsum", MULSUM, acc.device,
+                   acc.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   out.data_ptr(), n, x.shape[0], int(full))
+    LAUNCHES[MULSUM] += 1
     return out
 
 

@@ -102,16 +102,17 @@ def cond_sub(x, m_limbs: np.ndarray):
     return narrow(_cond_sub(widen(x), [int(v) for v in m_limbs]))
 
 
-def addmod(x, y):
-    """(x + y) mod p, the carry out of 2^256 dropped (KA on CUDA)."""
+def addmod(x, y, out=None):
+    """(x + y) mod p, the carry out of 2^256 dropped (KA on CUDA), into
+    `out` when given (it may be x or y; see ``fieldmul.addmod_aos``)."""
     from . import fieldmul
-    return fieldmul.addmod_aos(x, y)
+    return fieldmul.addmod_aos(x, y, out)
 
 
-def submod(x, y):
-    """(x - y) mod p (KA on CUDA tensors)."""
+def submod(x, y, out=None):
+    """(x - y) mod p (KA on CUDA tensors), into `out` when given."""
     from . import fieldmul
-    return fieldmul.submod_aos(x, y)
+    return fieldmul.submod_aos(x, y, out)
 
 
 def negmod(x):

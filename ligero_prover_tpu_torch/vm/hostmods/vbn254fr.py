@@ -40,9 +40,15 @@ NLIMB = 8
 
 
 class Arena:
-    """The (512, k, 8) slot tensor and the guest ops on it.  Each op reads
-    its operands, computes the result as a new tensor, then writes it into
-    the output slot, so an output slot may alias an input."""
+    """The (512, k, 8) slot tensor and the guest ops on it.  The linear ops
+    (``add``, ``sub`` and the constant forms) write their result into the
+    output slot in place (``out=``; on CUDA one KA launch, which reads both
+    operands of an element before it writes it, so the output slot may be
+    an input slot) and pass a constant by value, from the host, as the
+    reference's one in-place update of a donated buffer does
+    (``ligero_prover_tpu/vm/hostmods/vbn254fr.py:75-82, 94-107``).  The
+    products (``mul``, ``div``, ``mul_const``, ``mont_mul_const``) compute
+    a new tensor and copy it into the slot."""
 
     def __init__(self, k: int, device):
         self.device = device
@@ -69,10 +75,10 @@ class Arena:
         return self.put(oi, self.get(xi))
 
     def add(self, xi, yi, oi):
-        self.put(oi, fo.addmod(self.rows[xi], self.rows[yi]))
+        fo.addmod(self.rows[xi], self.rows[yi], out=self.rows[oi])
 
     def sub(self, xi, yi, oi):
-        self.put(oi, fo.submod(self.rows[xi], self.rows[yi]))
+        fo.submod(self.rows[xi], self.rows[yi], out=self.rows[oi])
 
     def mul(self, xi, yi, oi):
         rx, ry = self.get(xi), self.get(yi)
@@ -83,15 +89,16 @@ class Arena:
         out = self.put(oi, fo.mulmod(rx, fo.invmod(ry)))
         return out, ry, rx
 
+    # the constant stays on the host (fo.to_torch's default device): KA
+    # takes one host element by value
     def add_const(self, xi, oi, c):
-        self.put(oi, fo.addmod(self.rows[xi], self.const(c)))
+        fo.addmod(self.rows[xi], fo.to_torch(c), out=self.rows[oi])
 
     def sub_const(self, xi, oi, c):
-        self.put(oi, fo.submod(self.rows[xi], self.const(c)))
+        fo.submod(self.rows[xi], fo.to_torch(c), out=self.rows[oi])
 
     def const_sub(self, xi, oi, c):
-        x = self.rows[xi]
-        self.put(oi, fo.submod(self.const(c).expand(x.shape), x))
+        fo.submod(fo.to_torch(c), self.rows[xi], out=self.rows[oi])
 
     def mul_const(self, xi, oi, c):
         self.put(oi, fo.mulmod(self.rows[xi], self.const(c)))

@@ -55,12 +55,6 @@ def _r2(device) -> torch.Tensor:
     return _R2[key]
 
 
-def _masked_sum(acc, terms):
-    """acc (n, 8) += field-sum over axis 0 of terms (B, n, 8), in order
-    (one KF launch on CUDA tensors)."""
-    return fm.masked_sum_aos(acc, terms)
-
-
 def _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs):
     """(B, w, 8) rows -> (8, B, n) codeword planes, by the int8 engine
     when its tables are given, else by the planar butterflies."""
@@ -89,16 +83,18 @@ def _commit_body(state, pending, has_pending, rows, valid_count,
 def _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r):
     """Accumulate quadratic-test terms: r*(x∘y - z) for each (x,y,z) triple
     and r*(x - y) for each batch-equality pair.  Padded entries carry zero
-    scalars and contribute nothing."""
+    scalars and contribute nothing.  Each sum is the reference's
+    ``_masked_sum(acc, fo.mulmod(x, y))``: acc plus the B products, added
+    in row order, one fused KF launch on CUDA tensors."""
     ex = e.index_select(0, tri_idx[:, 0])
     ey = e.index_select(0, tri_idx[:, 1])
     ez = e.index_select(0, tri_idx[:, 2])
     t = fo.submod(fo.mulmod(ex, ey), ez)
-    quad = _masked_sum(quad, fo.mulmod(t, tri_r[:, None, :]))
+    quad = fm.masked_mulsum_aos(quad, t, tri_r[:, None, :])
     px = e.index_select(0, pair_idx[:, 0])
     py = e.index_select(0, pair_idx[:, 1])
     d = fo.submod(px, py)
-    return _masked_sum(quad, fo.mulmod(d, pair_r[:, None, :]))
+    return fm.masked_mulsum_aos(quad, d, pair_r[:, None, :])
 
 
 def _tree_sum_mod_planar(x):
@@ -159,9 +155,9 @@ def _check_terms_aos(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
                      pair_idx, pair_r):
     """AoS twin of :func:`_check_terms_planar`: e and r (B, n, 8), the
     row indices tensors on e's device."""
-    code = _masked_sum(code, fo.mulmod(e, code_rs[:, None, :]))
+    code = fm.masked_mulsum_aos(code, e, code_rs[:, None, :])
     if r is not None:
-        linear = _masked_sum(linear, fo.mulmod(e, r))
+        linear = fm.masked_mulsum_aos(linear, e, r)
     quad = _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r)
     return code, linear, quad
 
@@ -209,8 +205,8 @@ def _verify_body(state, pending, has_pending, code, linear, quad,
     state, pending, has_pending = tsha.absorb_stream(
         state, pending, has_pending, samples, valid_count)
     r = _open_body(rands, idx, dom_k, dom_n, n, use_planar)
-    code = _masked_sum(code, fo.mulmod(samples, code_rs[:, None, :]))
-    linear = _masked_sum(linear, fo.mulmod(samples, r))
+    code = fm.masked_mulsum_aos(code, samples, code_rs[:, None, :])
+    linear = fm.masked_mulsum_aos(linear, samples, r)
     quad = _quad_contrib(quad, samples, tri_idx, tri_r, pair_idx, pair_r)
     return state, pending, has_pending, code, linear, quad
 

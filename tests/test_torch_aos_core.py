@@ -45,17 +45,31 @@ HARNESS = r"""
 #include "fieldmul.cu"
 using namespace ligero_fm;
 
+template <int kMode>
+static void ka_mode(const uint32_t* x, const AosView& xv, const uint32_t* y,
+                    const AosView& yv, const Elem& c, int c_side,
+                    uint32_t* out, uint32_t i) {
+  if (c_side == kConstX) aos_eltwise_at<kMode, kConstX>(x, xv, y, yv, c, out, i);
+  else if (c_side == kConstY) aos_eltwise_at<kMode, kConstY>(x, xv, y, yv, c, out, i);
+  else aos_eltwise_at<kMode, kNoConst>(x, xv, y, yv, c, out, i);
+}
+
 // KA as its kernel runs it: element i on thread i, each operand through
-// the view that ligero_aos_eltwise makes of its arguments
+// the view that ligero_aos_eltwise makes of its arguments, or the one
+// c_side names (1 x, 2 y) taken from the 8 words at c, as the entry
+// copies them into the kernel's argument; out may be x or y
 extern "C" void ka(const uint32_t* x, long long x_div, long long x_outer,
                    long long x_inner, const uint32_t* y, long long y_div,
-                   long long y_outer, long long y_inner, uint32_t* out,
-                   uint32_t n, int mode) {
+                   long long y_outer, long long y_inner, const uint32_t* c,
+                   int c_side, uint32_t* out, uint32_t n, int mode) {
   const AosView xv = make_aos_view(x_div, x_outer, x_inner, n);
   const AosView yv = make_aos_view(y_div, y_outer, y_inner, n);
+  Elem cv{};
+  if (c_side != 0)
+    for (int l = 0; l < 8; ++l) cv.w[l] = c[l];
   for (uint32_t i = 0; i < n; ++i) {
-    if (mode == 0) aos_eltwise_at<0>(x, xv, y, yv, out, i);
-    else aos_eltwise_at<1>(x, xv, y, yv, out, i);
+    if (mode == 0) ka_mode<0>(x, xv, y, yv, cv, c_side, out, i);
+    else ka_mode<1>(x, xv, y, yv, cv, c_side, out, i);
   }
 }
 
@@ -90,7 +104,8 @@ def core(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     ptr, i64, u32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                           ctypes.c_uint32, ctypes.c_int)
-    lib.ka.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, i64, ptr, u32, i32]
+    lib.ka.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, i64, ptr, i32, ptr,
+                       u32, i32]
     lib.ka_elems.argtypes = [i64, i64, i64, u32, ptr]
     lib.kf.argtypes = [ptr, ptr, ptr, u32, u32]
     lib.threads_for.argtypes = [u32]
@@ -98,16 +113,26 @@ def core(tmp_path_factory):
     return lib
 
 
-def run_ka(core, name, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def run_ka(core, name, x: torch.Tensor, y: torch.Tensor,
+           by_value: bool = False, out: torch.Tensor | None = None
+           ) -> torch.Tensor:
     """KA over the broadcast of CPU tensors x and y, each read through the
-    view the wrapper computes for it."""
+    view the wrapper computes for it, or (`by_value`) an operand of one
+    element passed by value as the wrapper passes a host constant; into
+    `out` when given (it may be x or y)."""
     shape = torch.broadcast_shapes(x.shape, y.shape)
     n = int(np.prod(shape[:-1], dtype=np.int64))
-    xv, *xd = tfm.aos_view(x, shape)
-    yv, *yd = tfm.aos_view(y, shape)
-    out = torch.empty(shape, dtype=torch.int32)
-    core.ka(xv.data_ptr(), *xd, yv.data_ptr(), *yd, out.data_ptr(), n,
-            tfm.AOS_MODE[name])
+    consts = [tfm.host_element(t) if by_value else None for t in (x, y)]
+    side = 1 if consts[0] is not None else 2 if consts[1] is not None else 0
+    views = [(None, 1, 0, 0) if c is not None else tfm.aos_view(t, shape)
+             for t, c in zip((x, y), consts)]
+    (xv, *xd), (yv, *yd) = views
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32)
+    core.ka(None if xv is None else xv.data_ptr(), *xd,
+            None if yv is None else yv.data_ptr(), *yd,
+            consts[side - 1].data_ptr() if side else None, side,
+            out.data_ptr(), n, tfm.AOS_MODE[name])
     return out
 
 
@@ -224,6 +249,51 @@ def test_ka_view_index_math(core, div, outer, inner, n):
     d = min(div, n)
     assert elems.tolist() == [(i // d) * outer + (i % d) * inner
                               for i in range(n)]
+
+
+@pytest.mark.parametrize("name", list(tfm.AOS_MODE))
+def test_ka_takes_a_host_constant_by_value(core, name):
+    """The arena's constant calls with the constant as a kernel argument:
+    x +- c and c - x (c first), on edge and non-canonical x and c, equal
+    the same calls with c read through its view, the plain versions, the
+    JAX ops and Python ints."""
+    gen = np.random.default_rng(17)
+    x = rand_limbs(gen, (64,), False)
+    x[:len(EDGES)] = ints_to_limbs(EDGES)
+    for cv in EDGES + [int(v) for v in limbs_to_ints(
+            rand_limbs(gen, (3,), False))]:
+        c = ints_to_limbs([cv])[0]
+        for xt, ct, first in ((to_t(x), to_t(c), False),
+                              (to_t(x), to_t(c), True)):
+            a, b = (ct, xt) if first else (xt, ct)
+            got = run_ka(core, name, a, b, by_value=True)
+            assert torch.equal(got, run_ka(core, name, a, b))
+            assert torch.equal(got, PLAIN[name](a, b))
+            ja, jb = np.broadcast_arrays(to_np(a), to_np(b))
+            np.testing.assert_array_equal(
+                to_np(got), np.asarray(JAX_OP[name](ja, jb)))
+            want = [model(name, cv, v) if first else model(name, v, cv)
+                    for v in limbs_to_ints(x)]
+            assert limbs_to_ints(to_np(got)) == want
+
+
+@pytest.mark.parametrize("alias", ["x", "y", "both"])
+@pytest.mark.parametrize("name", list(tfm.AOS_MODE))
+def test_ka_writes_in_place(core, name, alias):
+    """out is x, y or both (the arena's ``add(i, i, i)``): every element
+    of the result equals the out-of-place result."""
+    gen = np.random.default_rng(len(alias) + 7)
+    x = to_t(rand_limbs(gen, (300,), False))
+    y = x if alias == "both" else to_t(rand_limbs(gen, (300,), False))
+    want = run_ka(core, name, x.clone(), y.clone())
+    target = y if alias == "y" else x
+    got = run_ka(core, name, x, y, out=target)
+    assert got is target and torch.equal(target, want)
+    # with a constant by value beside the slot written in place
+    c = to_t(rand_limbs(gen, (), False))
+    want = run_ka(core, name, x.clone(), c)
+    run_ka(core, name, x, c, by_value=True, out=x)
+    assert torch.equal(x, want)
 
 
 def _fold_inputs(gen, rows: int, n: int):

@@ -1,14 +1,15 @@
 """The AoS limb ops on the CPU: ``fo.addmod``/``fo.submod`` (KA on CUDA
-tensors) and the verifier's ``_masked_sum`` (KF), their dispatch, their
-parity with the JAX package, the operand views KA reads in place, and the
-independence of every other kernel's plain version from them.
+tensors) and the verifier's ordered sums (KF: ``fm.masked_sum_aos`` and
+the fused ``fm.masked_mulsum_aos``), their dispatch, their parity with the
+JAX package, the operand views KA reads in place, and the independence of
+every other kernel's plain version from them.
 
-* On CPU tensors ``fo.addmod``, ``fo.submod`` and the executor's
-  ``_masked_sum`` run the plain versions and launch nothing; a tensor on
-  neither the CPU nor a card is refused.
-* The port's ``_masked_sum`` equals the JAX ``_masked_sum`` on
-  non-canonical terms at B = 16, and ``fo.addmod``/``fo.submod`` equal the
-  JAX ops in the broadcast forms of the port's call sites.  Exact.
+* On CPU tensors ``fo.addmod``, ``fo.submod`` and both KF wrappers run
+  the plain versions and launch nothing; a tensor on neither the CPU nor a
+  card is refused.
+* KF's fold equals the JAX ``_masked_sum`` on non-canonical terms at
+  B = 16, and ``fo.addmod``/``fo.submod`` equal the JAX ops in the
+  broadcast forms of the port's call sites.  Exact.
 * ``fm.aos_view`` reads the call sites' operands in place (no copy).
 * No kernel's plain version, nor the planar NTT scans on CPU tensors,
   reaches the KA/KF wrappers: they are patched to raise while every
@@ -33,11 +34,11 @@ from ligero_prover_tpu_torch.field.limbs import ints_to_limbs
 from ligero_prover_tpu_torch.ops import fieldmul as tfm
 from ligero_prover_tpu_torch.ops import fieldops as tfo
 from ligero_prover_tpu_torch.ops import ntt as tntt
-from ligero_prover_tpu_torch.zkp import executor as tex
 
 from _torch_helpers import EDGES, NONCANONICAL, rand_limbs, to_np, to_t
 
-WRAPPERS = ("addmod_aos", "submod_aos", "masked_sum_aos")
+WRAPPERS = ("addmod_aos", "submod_aos", "masked_sum_aos",
+            "masked_mulsum_aos")
 
 
 def test_dispatch_on_cpu_runs_plain_and_counts_no_launch():
@@ -48,15 +49,18 @@ def test_dispatch_on_cpu_runs_plain_and_counts_no_launch():
     tfo.addmod(x, y)
     tfo.submod(x, y)
     tfo.submod(y, x)
-    tex._masked_sum(x, terms)
+    tfm.masked_sum_aos(x, terms)
+    tfm.masked_mulsum_aos(x, terms, terms[:, :1])
     assert set(tfm.LAUNCHES.values()) == {0}
     assert {k: dict(v) for k, v in tfm.PLAIN_CALLS.items() if v} == {
         "addmod_aos": {"cpu": 1}, "submod_aos": {"cpu": 2},
-        "masked_sum_aos": {"cpu": 1}}
+        "masked_sum_aos": {"cpu": 1}, "masked_mulsum_aos": {"cpu": 1}}
     meta = torch.empty((4, 8), dtype=torch.int32, device="meta")
-    for fn in (tfo.addmod, tfo.submod, tex._masked_sum):
+    for fn in (tfo.addmod, tfo.submod, tfm.masked_sum_aos):
         with pytest.raises(ValueError):
-            fn(meta, meta if fn is not tex._masked_sum else meta[None])
+            fn(meta, meta if fn is not tfm.masked_sum_aos else meta[None])
+    with pytest.raises(ValueError):
+        tfm.masked_mulsum_aos(meta, meta[None], meta[None])
 
 
 def _noncanonical_terms(gen, rows, n):
@@ -75,7 +79,7 @@ def _noncanonical_terms(gen, rows, n):
 @pytest.mark.parametrize("n", [192, 1000])
 def test_masked_sum_matches_jax_on_noncanonical_terms(n):
     acc, terms = _noncanonical_terms(np.random.default_rng(n), 16, n)
-    got = tex._masked_sum(to_t(acc), to_t(terms))
+    got = tfm.masked_sum_aos(to_t(acc), to_t(terms))
     want = jax.jit(jex._masked_sum)(acc, terms)
     np.testing.assert_array_equal(to_np(got), np.asarray(want, np.uint32))
 
@@ -180,6 +184,7 @@ def _plain_args(gen):
         "addmod_aos_plain": (aos((4,)), aos(())),
         "submod_aos_plain": (aos(()).expand(4, 8), aos((4,))),
         "masked_sum_aos_plain": (aos((4,)), aos((3, 4))),
+        "masked_mulsum_aos_plain": (aos((4,)), aos((3, 4)), aos((3, 1))),
         "addmod_planar_plain": (planes((2, 16)), planes((2, 16))),
         "submod_planar_plain": (planes((2, 16)), planes((2, 16))),
         "mont_mul_planar_plain": (planes((2, 16)), planes((2, 1))),

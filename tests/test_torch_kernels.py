@@ -22,7 +22,6 @@ from ligero_prover_tpu_torch.field.limbs import ints_to_limbs, limbs_to_ints
 from ligero_prover_tpu_torch.ops import fieldmul as tfm
 from ligero_prover_tpu_torch.ops import fieldops as tfo
 from ligero_prover_tpu_torch.ops import sha256 as tsha
-from ligero_prover_tpu_torch.zkp import executor as tex
 
 from _torch_helpers import (EDGES, NONCANONICAL, cuda_device, rand_limbs,
                             to_np, to_t)
@@ -537,12 +536,109 @@ def test_masked_sum_kernel_matches_plain(cuda_device, rows, n):
         terms[:, :len(edges)] = edges.flip(0)
         terms[:, -2:] = -1                     # 2^256 - 1: every add carries
     tfm.reset_counts()
-    got = tex._masked_sum(acc, terms)
+    got = tfm.masked_sum_aos(acc, terms)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), tfm.masked_sum_aos_plain(acc.cpu(),
                                                            terms.cpu()))
     assert tfm.LAUNCHES["masked_sum_aos"] == 1
     assert tfm.PLAIN_CALLS["masked_sum_aos"]["cuda"] == 0
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["row", "full"])
+@pytest.mark.parametrize("rows,n", [(0, 192), (1, 192), (16, 192),
+                                    (17, 192), (100, 192), (16, 32768)])
+def test_masked_mulsum_kernel_matches_plain(cuda_device, rows, n, full):
+    """Fused KF at the verifier's and the AoS check's calls (B = 100: two
+    chunks of products at 32 columns a CTA would not fit one), on
+    non-canonical acc, x and y with the edge values first."""
+    gen = np.random.default_rng(rows + n + full)
+    vals = to_t(ints_to_limbs(NONCANONICAL + EDGES), cuda_device)
+    acc = to_t(rand_limbs(gen, (n,), False), cuda_device)
+    x = to_t(rand_limbs(gen, (rows, n), False), cuda_device)
+    y = to_t(rand_limbs(gen, (rows, n if full else 1), False), cuda_device)
+    acc[:len(vals)] = vals
+    if rows:
+        x[:, :len(vals)] = vals
+        x[:, -2:] = -1                      # 2^256 - 1
+        if full:
+            y[:, :len(vals)] = vals.flip(0)
+    tfm.reset_counts()
+    got = tfm.masked_mulsum_aos(acc, x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tfm.masked_mulsum_aos_plain(
+        acc.cpu(), x.cpu(), y.cpu()))
+    assert tfm.LAUNCHES["masked_mulsum_aos"] == 1
+    assert sum(tfm.LAUNCHES.values()) == 1
+    assert tfm.PLAIN_CALLS["masked_mulsum_aos"]["cuda"] == 0
+
+
+@pytest.mark.parametrize("alias", ["x", "y", "both"])
+@pytest.mark.parametrize("name", list(tfm.AOS_MODE))
+def test_aos_eltwise_kernel_in_place(cuda_device, name, alias):
+    """KA at the arena's (8192, 8) with out = x, y or both, and with a
+    host constant by value written into x: one launch each, equal to the
+    plain version."""
+    kernel, plain = getattr(tfm, name), getattr(tfm, name + "_plain")
+    gen = np.random.default_rng(len(alias) + len(name))
+    x = to_t(rand_limbs(gen, (8192,), False), cuda_device)
+    y = x if alias == "both" else to_t(rand_limbs(gen, (8192,), False),
+                                       cuda_device)
+    want = plain(x.cpu(), y.cpu())
+    tfm.reset_counts()
+    out = y if alias == "y" else x
+    assert kernel(x, y, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    for c in (to_t(ints_to_limbs(NONCANONICAL[-1:])[0]),
+              to_t(rand_limbs(gen, ())), to_t(rand_limbs(gen, (1,)))):
+        for first in (False, True):
+            args = (c, x) if first else (x, c)
+            want = plain(*(a.cpu() for a in args))
+            kernel(*args, out=x)
+            torch.cuda.synchronize()
+            assert torch.equal(x.cpu(), want), (first, tuple(c.shape))
+    assert tfm.LAUNCHES[name] == 7 and sum(tfm.LAUNCHES.values()) == 7
+    assert tfm.PLAIN_CALLS[name]["cuda"] == 0
+
+
+def test_arena_in_place_on_the_card(cuda_device):
+    """The vbn254fr arena's linear ops on the card, output slot an input
+    slot, equal the CPU arena's rows, one KA launch each."""
+    from ligero_prover_tpu_torch.vm.hostmods.vbn254fr import Arena
+    gen = np.random.default_rng(21)
+    k = 8192
+    rows = [rand_limbs(gen, (k,), False) for _ in range(3)]
+    c = ints_to_limbs(NONCANONICAL[:1])[0]
+    arenas = [Arena(k, cuda_device), Arena(k, "cpu")]
+    for a in arenas:
+        for slot, row in enumerate(rows):
+            a.set_row(slot, row)
+    seq = [("add", (0, 0, 0)), ("sub", (1, 0, 1)), ("add_const", (2, 2, c)),
+           ("sub_const", (0, 0, c)), ("const_sub", (1, 1, c)),
+           ("add", (2, 1, 1))]
+    tfm.reset_counts()
+    for op, args in seq:
+        for a in arenas:
+            getattr(a, op)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(arenas[0].rows[:3].cpu(), arenas[1].rows[:3])
+    assert tfm.LAUNCHES["addmod_aos"] + tfm.LAUNCHES["submod_aos"] == \
+        len(seq)
+
+
+def test_aos_out_rejects_bad_tensors(cuda_device):
+    x = torch.zeros((64, 8), dtype=torch.int32, device=cuda_device)
+    flat = torch.zeros(64 * 8 + 4, dtype=torch.int32, device=cuda_device)
+    for out in (x.cpu(), x.to(torch.int64), flat[1:513].view(64, 8),
+                x[:32], torch.zeros((8, 64), dtype=torch.int32,
+                                    device=cuda_device).t()):
+        with pytest.raises((ValueError, TypeError)):
+            tfm.addmod_aos(x[:64], x, out=out)
+    big = torch.zeros((65, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):           # out overlaps x one row on
+        tfm.submod_aos(big[:64], x, out=big[1:])
+    with pytest.raises(ValueError):           # two host constants
+        tfm.addmod_aos(x[0].cpu(), x[0].cpu(), out=x[:1])
 
 
 def test_aos_kernels_reject_bad_operands(cuda_device):

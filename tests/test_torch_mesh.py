@@ -344,6 +344,7 @@ def test_kernels_follow_the_tensor_device(cuda_device):
     rows = _planes(rand_limbs(gen, (2, cols)), dev)
     sha = (tsha.initial_state(cols, dev),
            torch.zeros((cols, 8), dtype=torch.int32, device=dev))
+    slot = aos[1].clone()          # KA in place, its constant by value
     calls = [
         (lambda: tfm.mont_mul(aos, aos), lambda: tfm.mont_mul_plain(
             aos.cpu(), aos.cpu())),
@@ -369,6 +370,11 @@ def test_kernels_follow_the_tensor_device(cuda_device):
          lambda: tfm.submod_aos_plain(aos[:1].cpu(), aos.cpu())),
         (lambda: tfm.masked_sum_aos(aos[0], aos),
          lambda: tfm.masked_sum_aos_plain(aos[0].cpu(), aos.cpu())),
+        (lambda: tfm.masked_mulsum_aos(aos[0], aos, aos[:, :1]),
+         lambda: tfm.masked_mulsum_aos_plain(aos[0].cpu(), aos.cpu(),
+                                             aos[:, :1].cpu())),
+        (lambda: tfm.addmod_aos(slot, aos[0, :1].cpu(), out=slot),
+         lambda: tfm.addmod_aos_plain(aos[1].cpu(), aos[0, :1].cpu())),
     ]
     with torch.cuda.device(0):
         for kernel, plain in calls:
