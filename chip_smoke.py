@@ -19,7 +19,10 @@ its products at the verifier's and the AoS check's sums, beside their
 floors and the K2 + fold pair it replaced, and as the fold of given rows;
 one invmod ladder of
 K1 launches against the plain ladder; KE mont_mul at the check's three
-calls and quad-terms beside the nine launches it replaced; KR digitize on
+calls and quad-terms beside the nine launches it replaced; KQ, the
+check's whole quadratic-test accumulation, at the single-device call
+and one shard's, beside the launch floor and the 13-op sequence it
+replaced; KR digitize on
 the engine's AoS rows read in place and on planar limbs, and KE
 mulmod_fma with a full-plane and a per-row second operand, each also on
 non-canonical words), checks that
@@ -95,12 +98,14 @@ ISSUE_PER_CLK = 128
 # products (x*y, the low half of U_lo*J, m*p); mulmod is two of them, a
 # butterfly one; add and sub need none (their ~24 integer operations per
 # element take under 1/20 of their bytes' time and are left out); a
-# quad-terms element of a triple is one mulmod, of a pair none.
+# quad-terms element of a triple is one mulmod, of a pair none; KQ's
+# count is of Montgomery products (a triple 3, a pair 1, a prescale 1).
 # The renormalisation needs 8 products for the fold of bits [504, 528)
 # and 36 + 64 for its REDC; renorm_mid adds one Montgomery product.
 PRODUCTS = {"mont_mul": 164, "mulmod": 328, "butterfly_dit": 164,
             "butterfly_dif": 164, "mont_mul_planar": 164,
             "mulmod_planar": 328, "quad_terms_planar": 328,
+            "quad_acc_planar": 164,
             "mont_mul_scalar_planar": 164, "mont_mul_tiled_planar": 164,
             "mulmod_fma_planar": 328, "masked_mulsum_aos": 328,
             "renorm_final": 108,
@@ -160,6 +165,8 @@ SASS_NAME = {
     "mont_mul_tiled_planar": "tiled_kernel",
     "mulmod_planar": "run_product_kernelILi3ELi0ELb1EE",
     "quad_terms_planar": "quad_terms_kernelILb1EE",
+    # KQ: one kernel for every geometry
+    "quad_acc_planar": "quad_acc_kernel",
     "mont_mul_scalar_planar": "mont_scalar_kernel",
     "mulmod_fma_planar": "run_product_kernelILi5ELi0ELb0EE",
     "mulmod_fma_planar_row": "run_product_kernelILi5ELi1ELb0EE",
@@ -273,7 +280,8 @@ def launches_ms(launch, *buffers, iters: int = 50) -> tuple[float, float]:
     every launch takes the same buffers, which stay in L2 when they fit.
     The events are queued behind a ~10 ms device sleep, so the host has
     enqueued every launch before the first one starts and host time does
-    not enter the measurement."""
+    not enter the measurement.  Every set is launched once before the
+    timing."""
     import torch
     nbytes = sum(b.untyped_storage().nbytes() for b in buffers)
     copies = -(-3 * L2_BYTES // nbytes) if nbytes else 1
@@ -281,7 +289,8 @@ def launches_ms(launch, *buffers, iters: int = 50) -> tuple[float, float]:
                         for _ in range(copies - 1)]
     times = []
     for rotation in (sets, sets[:1]):
-        launch(*rotation[0])
+        for bufs in rotation:
+            launch(*bufs)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -293,6 +302,30 @@ def launches_ms(launch, *buffers, iters: int = 50) -> tuple[float, float]:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return times[0], times[1]
+
+
+def graph_ms(fn, *buffers, iters: int = 50) -> tuple[float, float]:
+    """Device time of one call of `fn`, a sequence of launches, (cold,
+    hot) as ``launches_ms`` takes them, with the call captured in a CUDA
+    graph for each set of buffers and replayed: called from Python, a
+    sequence of small launches can take longer on the host than on the
+    device, and the device time is what is measured here."""
+    import torch
+    graphs = {}
+
+    def replay(*bufs):
+        key = tuple(b.data_ptr() for b in bufs)
+        if key not in graphs:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*bufs)
+            torch.cuda.current_stream().wait_stream(side)
+            graphs[key] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[key]):
+                fn(*bufs)
+        graphs[key].replay()
+    return launches_ms(replay, *buffers, iters=iters)
 
 
 def sass_counts(lib_path, names: dict = SASS_NAME) -> dict:
@@ -399,6 +432,25 @@ def run_grid(n: int, length: int, vec: bool) -> tuple[int, int]:
     `vec`, as ``run_geom``/``run_ctas`` in csrc/planar.cu compute them."""
     per_cta = RUN_THREADS * RUN_UNITS * (4 if vec else 1)
     return -(-n // length) * -(-length // per_cta), RUN_THREADS
+
+
+# csrc/planar.cu kQuadCols, kQuadThreads, kQuadMinCtas, kQuadSmem
+QUAD_COLS, QUAD_THREADS, QUAD_MIN_CTAS, QUAD_SMEM = 16, 128, 7 * SMS, \
+    100 * 1024
+
+
+def quad_acc_grid(n: int, t_: int, p_: int) -> tuple[int, int, int, int,
+                                                     int]:
+    """KQ's (CTAs, threads, cols, lanes, shared bytes) for n columns, T
+    triples and P pairs, as ``quad_geom``/``quad_ctas``/``quad_smem`` in
+    csrc/planar.cu compute them."""
+    terms = t_ + p_
+    cols = QUAD_COLS
+    while cols > 1 and (-(-n // cols) < QUAD_MIN_CTAS
+                        or 32 * terms * (cols + 1) > QUAD_SMEM):
+        cols //= 2
+    lanes = min(terms, QUAD_THREADS // cols)
+    return -(-n // cols), cols * lanes, cols, lanes, 32 * terms * (cols + 1)
 
 
 # csrc/planar.cu kTiledMaxThreads
@@ -1334,6 +1386,148 @@ def check_ke_runs(device, gen, lib, stream, results, k=FULL_K):
            bnd, floor)
 
 
+# KQ's calls: (label, rows of e, columns) -- the single-device check step
+# and one of phase 8's 4 shards, T = P = 16 (batch_rows 16)
+QUAD_ACC_CALLS = (("single device", 16, 4 * FULL_K),
+                  ("one of 4 shards", 16, FULL_K))
+
+
+def quad_acc_sequence(lib, quad, e, idx, t_, p_, tri_r, pair_r):
+    """The planar check's quadratic test before KQ, its 13 device ops as
+    ``zkp/executor.py`` made them: quad-terms, the scalars' cat, transpose
+    and prescale, the row-scalar product, the tree sum's five addmod folds
+    (T + P = 32), and the transposes and the addmod around the (n, 8)
+    accumulator.  The row indices (idx: T (x, y, z) then P (x, y), int32)
+    and the scalars tri_r and pair_r are on the card already: the uploads
+    are left out, as they are of KQ's time (the check uploaded the
+    indices once and each scalar set once; KQ uploads indices and scalars
+    in one)."""
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    from ligero_prover_tpu_torch.zkp.executor import _r2, \
+        _tree_sum_mod_planar
+    b, n = e.shape[1:]
+    terms = torch.empty((8, t_ + p_, n), dtype=torch.int32, device=e.device)
+    kernels.check(lib.ligero_planar_quad_terms(
+        e.data_ptr(), b * n, b, n, idx.data_ptr(), t_,
+        idx.data_ptr() + 12 * t_, p_, terms.data_ptr(),
+        kernels.stream_handle(e.device)), fm.QUAD)
+    scals = fm.mont_mul_scalar_planar(
+        torch.cat([tri_r, pair_r]).T.contiguous(), _r2(e.device))
+    prods = fm.mont_mul_planar(terms, scals[:, :, None])
+    return fm.addmod_planar(quad.T.contiguous(),
+                            _tree_sum_mod_planar(prods)).T.contiguous()
+
+
+def check_quad_acc(device, gen, lib, stream, results):
+    """KQ at QUAD_ACC_CALLS against its plain version (max_abs_err 0):
+    random rows and indices with repeats; non-canonical rows, scalars and
+    acc with the edge values; x = y = z; entries zero-padded as
+    ``_pack_quads`` pads them (index 0, scalar 0); batch_rows 3 (T = P =
+    3, a head at the tree's second level) and T = 3, P = 2.  Timed
+    L2-cold and hot beside the launch floor at its grid, its bound and
+    the 13-op sequence it replaced (``quad_acc_sequence``, one callable,
+    its operands on the card, replayed as a CUDA graph: ``graph_ms``),
+    which must give the same limbs."""
+    import numpy as np
+    import torch
+    from ligero_prover_tpu_torch import kernels
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
+    name = fm.QACC
+
+    def operands(b, n, t_, p_, canonical=True, index="random"):
+        acc = random_limbs(gen, (n,), device, canonical)
+        e = random_limbs(gen, (b, n), device, canonical).movedim(-1, 0) \
+            .contiguous()
+        tri = gen.integers(0, b, (t_, 3)).astype(np.int32)
+        pair = gen.integers(0, b, (p_, 2)).astype(np.int32)
+        tri_r, pair_r = (random_limbs(gen, (k,), "cpu", canonical).numpy()
+                         .view(np.uint32) for k in (t_, p_))
+        if not canonical:
+            acc[:6] = edge_limbs(device)
+            e[:, 0, :6] = edge_limbs(device).T
+            e[:, 1, :6] = edge_limbs(device, reverse=True).T
+            e[:, 0, -2:] = -1
+            k = min(6, t_)
+            tri_r[:k] = edge_limbs("cpu").numpy().view(np.uint32)[:k]
+        if index == "same":
+            tri[:] = np.arange(t_)[:, None] % b
+            pair[:] = np.arange(p_)[:, None] % b
+        elif index == "padded":
+            tri[2:], pair[1:], tri_r[2:], pair_r[1:] = 0, 0, 0, 0
+        return acc, e, tri, pair, tri_r, pair_r
+
+    rows = {}
+    for label, bsz, n in QUAD_ACC_CALLS:
+        t_ = p_ = bsz
+        cases = [operands(bsz, n, t_, p_),
+                 operands(bsz, n, t_, p_, False),
+                 operands(bsz, n, t_, p_, False, "same"),
+                 operands(bsz, n, t_, p_, False, "padded"),
+                 operands(3, n, 3, 3, False),
+                 operands(bsz, n, 3, 2, False)]
+        err = compare_cases(fm.quad_acc_planar, fm.quad_acc_planar_plain,
+                            cases)
+        acc, e, tri, pair, tri_r, pair_r = cases[0]
+        args, _, _ = fm.quad_acc_args(acc, e, tri, pair, tri_r, pair_r)
+        dev_args = torch.from_numpy(args).to(device)
+        out = torch.empty_like(acc)
+        times = launches_ms(lambda e, a, acc, out: kernels.check(
+            lib.ligero_planar_quad_acc(
+                e.data_ptr(), bsz * n, bsz, n, a.data_ptr(), t_, p_,
+                acc.data_ptr(), out.data_ptr(), stream), name),
+            e, dev_args, acc, out)
+        tr_d, pr_d = (torch.from_numpy(a.view(np.int32)).to(device)
+                      for a in (tri_r, pair_r))
+        want = quad_acc_sequence(lib, acc, e, dev_args, t_, p_, tr_d, pr_d)
+        got = fm.quad_acc_planar(acc, e, tri, pair, tri_r, pair_r)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        require(same, f"{name} {label} equals the sequence it replaced")
+        seq = graph_ms(lambda acc, e, a, tr, pr: quad_acc_sequence(
+            lib, acc, e, a, t_, p_, tr, pr), acc, e, dev_args, tr_d, pr_d)
+        ctas, threads, cols, lanes, smem = quad_acc_grid(n, t_, p_)
+        floor = floor_ms(lib, stream, ctas, threads)
+        # each distinct row of e read once, acc read and out written once,
+        # the packed indices and scalars read once; a Montgomery product
+        # per prescale, three per triple and one per pair
+        distinct = len(set(tri.ravel()) | set(pair.ravel()))
+        bnd = bound(name, 32 * n * (distinct + 2) + 4 * args.size,
+                    n * (3 * t_ + p_) + t_ + p_)
+        plain_ms = cuda_ms(lambda: fm.quad_acc_planar_plain(
+            acc, e, tri, pair, tri_r, pair_r), 3)
+        regs, st, ld = CARD.get("ptxas", {}).get(name, ("not built here",
+                                                        0, 0))
+        wide, _, sass = CARD["sass"][name]
+        rows[label] = {"ms": times[0], "hot_ms": times[1], "floor_ms": floor,
+                       "bound_ms": bnd[0], "bound_by": bnd[1],
+                       "sequence_ms": seq[0], "sequence_hot_ms": seq[1],
+                       "plain_ms": plain_ms, "max_abs_err": err,
+                       "ctas": ctas, "cols": cols, "lanes": lanes,
+                       "smem": smem}
+        log(f"phase 3: {name} {label}: e (8,{bsz},{n}), T={t_} P={p_} "
+            f"({distinct} distinct rows); also non-canonical, x = y = z, "
+            f"padded, batch_rows 3 and T=3 P=2: max_abs_err={err} "
+            f"kernel_ms={times[0]:.4f} (operands in L2: {times[1]:.4f}) "
+            f"floor_ms={floor:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}, "
+            f"{100 * bnd[0] / times[0]:.0f}%); the 13-op sequence it "
+            f"replaced {seq[0]:.4f} (in L2: {seq[1]:.4f}) ms, "
+            f"equal: {same}; plain_ms={plain_ms:.4f}; grid {ctas} CTAs of "
+            f"{cols} columns x {lanes} lanes, {smem} shared bytes; "
+            f"registers={regs} spills={st}/{ld} SASS={sass} "
+            f"(IMAD.WIDE {wide})")
+        require(err == 0, f"{name} {label} equals its plain version")
+    CARD["quad_acc"] = rows
+    first = rows[QUAD_ACC_CALLS[0][0]]
+    results[name] = {k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "floor_ms", "sequence_ms")}
+    results[name]["at_shard"] = {k: rows[QUAD_ACC_CALLS[1][0]][k] for k in
+                                 ("ms", "floor_ms", "bound_ms",
+                                  "sequence_ms")}
+
+
 def check_butterfly_passes(device, gen, lib, stream, results, k=FULL_K):
     """KB at every butterfly transform of the planar path at k (n = 4k):
     each transform as its planned passes (``ops.ntt.pass_plan``) against
@@ -1692,6 +1886,7 @@ def check_kernels(device) -> dict:
     check_butterfly_passes(device, gen, lib, stream, results)
     check_planar_kernels(device, gen, lib, stream, results)
     check_ke_runs(device, gen, lib, stream, results)
+    check_quad_acc(device, gen, lib, stream, results)
     check_mxu_kernels(device, gen, lib, stream, results)
     return results
 
@@ -1796,7 +1991,7 @@ def plain_on_cuda() -> dict:
 # verifier's submods and sums, the AoS check's sums and the AoS codec
 LIMB_KERNELS = ("addmod_aos", "submod_aos", "masked_mulsum_aos")
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
-                  "mont_mul_planar", "quad_terms_planar",
+                  "mont_mul_planar", "quad_acc_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar",
                   *LIMB_KERNELS)
 AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
@@ -1899,6 +2094,8 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
                 f"every kernel of the {label} path launched: {launches}")
         require(all(v == 0 for v in plain.values()),
                 f"no plain version ran on CUDA tensors: {plain}")
+        require(not planar or launches[fm.QUAD] == 0,
+                f"the planar check takes KQ, not quad-terms: {launches}")
         if planar:
             bad = verify(prog, tamper(res.proof), geometry=geo,
                          device=device)
@@ -2050,6 +2247,8 @@ def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
             "the sharded bit_decompose proof equals the CPU proof")
     require(all(launches[k] > 0 for k in SHARDED_KERNELS),
             f"every kernel of the sharded path launched: {launches}")
+    require(launches[fm.QUAD] == 0,
+            f"the sharded check takes KQ, not quad-terms: {launches}")
     require(small_launches["mont_mul"] > 0,
             f"K1 ran through the arena on the mesh: {small_launches}")
     require(all(v == 0 for v in {**plain, **small_plain}.values()),
@@ -2296,8 +2495,12 @@ def main() -> int:
         # no caller on the main path since quad-terms: phase 3 only
         "mulmod_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
         # _k_mulmod's planar entry around the check's call, with the
-        # jnp.take gather and the submods of zkp/executor.py:233-250
+        # jnp.take gather and the submods of zkp/executor.py:233-250; no
+        # caller on the main path since KQ: phase 3 only
         "quad_terms_planar": ("planar.cu", "ops/pallas/fieldmul.py:264"),
+        # KQ: the same with all the quadratic test wraps around it
+        "quad_acc_planar": ("planar.cu", "ops/pallas/fieldmul.py:264 + "
+                            "ligero_prover_tpu/zkp/executor.py:230-250"),
         "mont_mul_scalar_planar": ("planar.cu",
                                    "ops/pallas/fieldmul.py:269"),
         # _k_mont_mul's planar entry, tiled: the sharded encode's twist

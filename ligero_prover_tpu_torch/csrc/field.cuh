@@ -181,6 +181,37 @@ LIGERO_HD void mulmod(const uint32_t x[8], const uint32_t y[8],
   mont_mul(t, r2, out);
 }
 
+// Elements in shared memory, as fused KF (fieldmul.cu) and KQ (planar.cu)
+// keep their products: element `slot` has limbs 0-3 in the first half of
+// the buffer (`half` words on) and 4-7 in the second, so that a warp's
+// neighbouring slots move neighbouring 16 bytes.
+LIGERO_HD void store_prod(uint32_t* s, uint32_t half, uint32_t slot,
+                          const uint32_t v[8]) {
+#ifdef __CUDACC__
+  ((uint4*)s)[slot] = make_uint4(v[0], v[1], v[2], v[3]);
+  ((uint4*)(s + half))[slot] = make_uint4(v[4], v[5], v[6], v[7]);
+#else
+  for (int l = 0; l < 4; ++l) {
+    s[4 * slot + l] = v[l];
+    s[half + 4 * slot + l] = v[4 + l];
+  }
+#endif
+}
+
+LIGERO_HD void load_prod(const uint32_t* s, uint32_t half, uint32_t slot,
+                         uint32_t v[8]) {
+#ifdef __CUDACC__
+  const uint4 a = ((const uint4*)s)[slot], b = ((const uint4*)(s + half))[slot];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+#else
+  for (int l = 0; l < 4; ++l) {
+    v[l] = s[4 * slot + l];
+    v[4 + l] = s[half + 4 * slot + l];
+  }
+#endif
+}
+
 // ---- the carry-chain Montgomery product ------------------------------------
 //
 // mont_mul_cc(x, y) equals mont_mul(x, y) on every input (x, y < 2^256):

@@ -245,40 +245,10 @@ static inline MulsumGeom mulsum_geom(uint32_t n, uint32_t rows) {
   return g;
 }
 
-// A chunk's products in shared memory: product (b, c) in slot
-// b * cols + c, limbs 0-3 in the first half of the buffer and 4-7 in the
-// second, so that neighbouring columns move neighbouring 16 bytes.
-LIGERO_HD void store_prod(uint32_t* s, uint32_t half, uint32_t slot,
-                          const uint32_t v[8]) {
-#ifdef __CUDACC__
-  ((uint4*)s)[slot] = make_uint4(v[0], v[1], v[2], v[3]);
-  ((uint4*)(s + half))[slot] = make_uint4(v[4], v[5], v[6], v[7]);
-#else
-  for (int l = 0; l < 4; ++l) {
-    s[4 * slot + l] = v[l];
-    s[half + 4 * slot + l] = v[4 + l];
-  }
-#endif
-}
-
-LIGERO_HD void load_prod(const uint32_t* s, uint32_t half, uint32_t slot,
-                         uint32_t v[8]) {
-#ifdef __CUDACC__
-  const uint4 a = ((const uint4*)s)[slot], b = ((const uint4*)(s + half))[slot];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-#else
-  for (int l = 0; l < 4; ++l) {
-    v[l] = s[4 * slot + l];
-    v[4 + l] = s[half + 4 * slot + l];
-  }
-#endif
-}
-
 // Phase 1 of the chunk from row b0 on thread (c, r) of a CTA, whose
 // column is col: the products x[b, col] * y mod p of rows b0 + r,
-// b0 + r + lanes, ... into shared memory s.  y is (B, n, 8) (kFull) or
-// one element a row, (B, 1, 8).
+// b0 + r + lanes, ... into shared memory s (field.cuh's store_prod
+// layout).  y is (B, n, 8) (kFull) or one element a row, (B, 1, 8).
 template <bool kFull>
 LIGERO_HD void mulsum_products_at(const uint32_t* x, const uint32_t* y,
                                   const MulsumGeom& g, uint32_t b0,

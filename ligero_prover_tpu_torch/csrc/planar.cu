@@ -1,5 +1,6 @@
 // Planar BN254-Fr kernels for Hopper: KB (a pass of constant-geometry
-// butterfly stages) and KE (element-wise add/sub/Montgomery products).
+// butterfly stages), KE (element-wise add/sub/Montgomery products) and KQ
+// (the check's whole quadratic-test accumulation; its note is below).
 // Operands are limb planes: element i of an (8, X) tensor has limb l at
 // x[l*ls + i], with ls the plane's stride (X for a contiguous tensor).
 //
@@ -77,9 +78,10 @@
 // mulmod_cc, then add_mod of z, a full plane read as x is, in single
 // elements: see launch_fma).  quad-terms
 // reads the rows of the encoded batch in place (it fits the 50 MB L2)
-// and writes the (8, T+P, n) terms that the quadratic product reads: one
-// launch where the check made five row gathers, a mulmod, two submods and
-// a concatenation.
+// and writes the (8, T+P, n) terms: one launch where the check made five
+// row gathers, a mulmod, two submods and a concatenation.  KQ, which also
+// takes the products, the fold and the add into acc, has replaced it on
+// the main path.
 //
 // What bounds them on this card: a butterfly or a Montgomery product is
 // ~200 32-bit multiply-adds per 96 bytes moved, so KB and KE's product
@@ -609,6 +611,215 @@ LIGERO_HD void tiled_at(const uint32_t* x, uint32_t x_ls, const uint32_t* y,
   store_planes<1>(out, g.B * g.w, row * g.w + i, r);
 }
 
+
+// ---- KQ: the quadratic test's accumulation in one launch -------------------
+//
+// Replaces _k_mulmod's planar entry (ligero_prover_tpu/ops/pallas/
+// fieldmul.py:264) together with all that the check wraps around it for
+// the quadratic test (ligero_prover_tpu/zkp/executor.py:230-250).  For
+// each column j of the encoded batch e (8, B, n), with N = T + P terms:
+//   term_t = sub_mod(mulmod_cc(e[x_t], e[y_t]), e[z_t])    t <  T (triples)
+//   term_t = sub_mod(e[x_t], e[y_t])                        t >= T (pairs)
+//   p_t    = mont_mul_cc(term_t, s_t),  s_t = mont_mul_cc(r_t, R^2 mod p)
+//   out[j] = add_mod(acc[j], tree_fold(p_0, ..., p_{N-1}))
+// where tree_fold is _tree_sum_mod_planar's association (zkp/executor.py):
+// fold rows i and i + h of the b rows left, and when b is odd carry the
+// first row (the head) to the next level.  acc and out are (n, 8) AoS, as
+// the contexts hold them.  This is the reference's composition on every
+// input, non-canonical limbs included; a reordered sum, or algebra equal
+// only on canonical values, is another function there.  Before KQ the
+// check made 13 device ops here (quad-terms; the scalars' cat, transpose
+// and prescale; a second product pass; five addmod folds; the transposes
+// and the addmod around acc), and the (8, T+P, n) terms and products each
+// travelled through device memory.
+//
+// What bounds it on this card: at the check's call (8, 16, 32768), T = P =
+// 16, the products are 344 M wide multiply-adds (a triple: a mulmod and a
+// mont_mul, 492; a pair: a mont_mul, 164), 0.021 ms at chip_smoke.bound's
+// 64 per clock per SM but 0.055-0.066 ms at the 20-24 that the carry
+// chains reach (chip_smoke phase 2); its bytes (e read once, acc read and
+// out written) take 0.0056 ms.  So it runs at the pace of its products,
+// and the design keeps all else off their path: terms and products stay
+// in shared memory.  A CTA of C columns x R row-lanes (blockDim (C, R);
+// a warp reads 32 consecutive columns of a row, 128 bytes a limb plane):
+//   1. threads 0..N-1 prescale the scalars into shared memory; thread
+//      (c, r) computes the terms t = r, r + R, ... of its column, from the
+//      rows of e read by index (in place; e fits the 50 MB L2), into
+//      shared memory (field.cuh's store_prod layout);
+//   2. after a barrier, it multiplies the same terms by their s_t;
+//   3. the tree's levels, each level's folds spread over the R lanes, a
+//      barrier after each (ceil(log2 N) levels);
+//   4. lane 0 adds the column's sum to acc and stores it.
+// The shared memory, 32 (N + N*C) bytes, takes the dynamic opt-in above
+// 48 KB (a geometry of 32 columns at N = 64 would).
+//
+// The geometry, chosen by measurement (experiment_kq.py, three rounds in
+// turns, L2-cold, NVIDIA H100 80GB HBM3 at 700 W; every (C, R) of C in
+// 2..32 and R in 1..32 up to 512 threads): at the single-device call
+// 16 x 8 took 0.0540 ms, 32 x 4 0.0551, 8 x 16 0.0562, 32 x 16 0.0579;
+// at a shard's (8, 16, 8192) 8 x 16 0.0179, 32 x 16 0.0181, 16 x 8
+// 0.0188.  KQ runs at 62 registers, so an SM holds 8 CTAs of 128 threads
+// (32 warps): the fast geometries are 128-thread CTAs with enough of them
+// to give every SM 7 or more; wider CTAs repeat the prescale for fewer
+// columns, so the widest C that still does.  Rounds agreed to 0.0002 ms.
+
+enum {
+  kQuadCols = 16,           // columns a CTA, at most
+  kQuadThreads = 128,       // threads a CTA, C x R, where T + P allows
+  kQuadMinCtas = 7 * kSms,  // CTAs a launch, where the columns allow
+  kQuadMaxThreads = 512,    // the kernel's bound (the sweep's largest)
+  kQuadSmem = 100 * 1024,   // shared bytes a CTA, at most
+  kQuadMaxTerms = 1024      // T + P, at most
+};
+
+// A launch over n columns with T triples and P pairs (N = T + P >= 1):
+// `cols` columns x `lanes` row-lanes a CTA, CTA k taking columns k*cols..
+struct QuadGeom {
+  uint32_t n, T, P, cols, lanes;
+};
+
+// Shared bytes of a CTA: the N terms of each of its columns, then the N
+// prescaled scalars.
+LIGERO_HHD uint32_t quad_smem(const QuadGeom& g) {
+  return 32u * (g.T + g.P) * (g.cols + 1u);
+}
+
+// The grid rule: the widest C of 16, 8, .., 1 that still gives the card
+// kQuadMinCtas CTAs and whose terms fit kQuadSmem; R = 128 / C lanes, at
+// most N.
+LIGERO_HHD QuadGeom quad_geom(uint32_t n, uint32_t T, uint32_t P) {
+  const uint32_t N = T + P;
+  QuadGeom g = {n, T, P, kQuadCols, 0u};
+  while (g.cols > 1u && ((n + g.cols - 1u) / g.cols < kQuadMinCtas ||
+                         quad_smem(g) > kQuadSmem))
+    g.cols >>= 1;
+  g.lanes = kQuadThreads / g.cols < N ? kQuadThreads / g.cols : N;
+  return g;
+}
+
+// Whether ligero_planar_quad_acc takes a call: B rows of n columns at
+// limb stride e_ls (every plane offset below 2^32, 32-bit index math),
+// (n, 8) accumulators (8n below 2^32) and 1 <= T + P <= kQuadMaxTerms.
+LIGERO_HHD bool quad_acc_ok(long long e_ls, long long B, long long n,
+                            long long T, long long P) {
+  return B >= 1 && n >= 0 && T >= 0 && P >= 0 && T + P >= 1 &&
+         T + P <= kQuadMaxTerms && e_ls >= B * n &&
+         7 * e_ls + B * n < (1ll << 32) && 8 * n < (1ll << 32);
+}
+
+LIGERO_HHD uint32_t quad_ctas(const QuadGeom& g) {
+  return (g.n + g.cols - 1u) / g.cols;
+}
+
+// Words of each half of the terms' buffer (store_prod's `half`); the
+// scalars follow the second half.
+LIGERO_HD uint32_t quad_half(const QuadGeom& g) {
+  return 4u * (g.T + g.P) * g.cols;
+}
+
+// Phase 1, thread `tid` (r*C + c) of a CTA: the prescaled scalars s_t =
+// r_t * R^2 * 2^-256 mod p (KE mont_scalar's product, x = r_t) for t =
+// tid, tid + C*R, ... into shared memory.  args: the 3T + 2P row indices,
+// then the (T+P, 8) scalars r_t.
+LIGERO_HD void quad_scale_at(const int32_t* args, const QuadGeom& g,
+                             uint32_t tid, uint32_t* sm) {
+  const uint32_t* rs = (const uint32_t*)(args + 3u * g.T + 2u * g.P);
+  uint32_t* sc = sm + 2u * quad_half(g);
+  uint32_t r2[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) r2[l] = kR2[l];
+  for (uint32_t t = tid; t < g.T + g.P; t += g.cols * g.lanes) {
+    uint32_t a[8], s[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) a[l] = rs[8u * t + l];
+    mont_mul_cc(a, r2, s);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) sc[8u * t + l] = s[l];
+  }
+}
+
+// Phase 1, thread (c, r) of CTA `cta`: the terms t = r, r + R, ... of its
+// column into shared memory.  Row b of e starts at element b*n of its
+// planes (limb stride e_ls); args holds the T (x, y, z) and then the P
+// (x, y), each checked by the caller.
+LIGERO_HD void quad_acc_terms_at(const uint32_t* e, uint32_t e_ls,
+                                 const int32_t* args, const QuadGeom& g,
+                                 uint32_t cta, uint32_t c, uint32_t r,
+                                 uint32_t* sm) {
+  const uint32_t col = cta * g.cols + c;
+  if (col >= g.n) return;
+  const uint32_t half = quad_half(g);
+  for (uint32_t t = r; t < g.T + g.P; t += g.lanes) {
+    const bool triple = t < g.T;
+    const int32_t* ix =
+        triple ? args + 3u * t : args + 3u * g.T + 2u * (t - g.T);
+    uint32_t a[1][8], b[1][8], v[8];
+    load_planes<1>(e + (uint32_t)ix[0] * g.n, e_ls, col, a);
+    load_planes<1>(e + (uint32_t)ix[1] * g.n, e_ls, col, b);
+    if (triple) {
+      uint32_t m[8];
+      mulmod_cc(a[0], b[0], m);
+      load_planes<1>(e + (uint32_t)ix[2] * g.n, e_ls, col, a);
+      sub_mod(m, a[0], v);
+    } else {
+      sub_mod(a[0], b[0], v);
+    }
+    store_prod(sm, half, t * g.cols + c, v);
+  }
+}
+
+// Phase 2, thread (c, r): its terms times their prescaled scalars, in
+// place (KE mont_mul's product, x = the term).
+LIGERO_HD void quad_acc_products_at(const QuadGeom& g, uint32_t cta,
+                                    uint32_t c, uint32_t r, uint32_t* sm) {
+  if (cta * g.cols + c >= g.n) return;
+  const uint32_t half = quad_half(g);
+  const uint32_t* sc = sm + 2u * half;
+  for (uint32_t t = r; t < g.T + g.P; t += g.lanes) {
+    uint32_t v[8], s[8], p[8];
+    load_prod(sm, half, t * g.cols + c, v);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) s[l] = sc[8u * t + l];
+    mont_mul_cc(v, s, p);
+    store_prod(sm, half, t * g.cols + c, p);
+  }
+}
+
+// Phase 3, one level of the tree over the b >= 2 sums left in slots
+// 0..b-1 of a column: slot off + i becomes slot off + i plus slot
+// off + h + i (add_mod in that order) for i < h = b/2, with off = 1 when b
+// is odd (slot 0, the head, is carried); lane r takes i = r, r + R, ....
+// The (b + 1)/2 sums left are then slots 0.. .  No slot that one thread
+// writes is read by another in the same level.
+LIGERO_HD void quad_acc_fold_at(const QuadGeom& g, uint32_t b, uint32_t cta,
+                                uint32_t c, uint32_t r, uint32_t* sm) {
+  if (cta * g.cols + c >= g.n) return;
+  const uint32_t off = b & 1u, h = b >> 1, half = quad_half(g);
+  for (uint32_t i = r; i < h; i += g.lanes) {
+    uint32_t x[8], y[8], s[8];
+    load_prod(sm, half, (off + i) * g.cols + c, x);
+    load_prod(sm, half, (off + h + i) * g.cols + c, y);
+    add_mod(x, y, s);
+    store_prod(sm, half, (off + i) * g.cols + c, s);
+  }
+}
+
+// Phase 4, lane 0 of column c: out = acc + the column's sum (slot 0),
+// (n, 8) AoS; acc is read before out is written, so out may be acc.
+LIGERO_HD void quad_acc_store_at(const uint32_t* acc, uint32_t* out,
+                                 const QuadGeom& g, uint32_t cta, uint32_t c,
+                                 uint32_t r, const uint32_t* sm) {
+  const uint32_t col = cta * g.cols + c;
+  if (r != 0u || col >= g.n) return;
+  uint32_t a[8], s[8], o[8];
+  load4(acc + 8u * col, a);
+  load4(acc + 8u * col + 4u, a + 4);
+  load_prod(sm, quad_half(g), c, s);
+  add_mod(a, s, o);
+  store4(out + 8u * col, o);
+  store4(out + 8u * col + 4u, o + 4);
+}
+
 }  // namespace ligero_pl
 
 #ifdef __CUDACC__
@@ -699,8 +910,51 @@ tiled_kernel(const uint32_t* __restrict__ x, uint32_t x_ls,
   tiled_at(x, x_ls, y, y_ls, out, g, blockIdx.x, threadIdx.x);
 }
 
+// KQ: the phases of quad_acc_*_at with a barrier between them; registers
+// capped at 64 (two CTAs of the sweep's 512 threads, or eight of
+// quad_geom's 128, fit an SM).  No __restrict__ on acc and out: out may be
+// acc.
+__global__ void __launch_bounds__(kQuadMaxThreads, 2)
+quad_acc_kernel(const uint32_t* __restrict__ e, uint32_t e_ls,
+                const int32_t* __restrict__ args, const uint32_t* acc,
+                uint32_t* out, QuadGeom g) {
+  extern __shared__ uint4 quad_buf[];
+  uint32_t* sm = (uint32_t*)quad_buf;
+  const uint32_t c = threadIdx.x, r = threadIdx.y, cta = blockIdx.x;
+  quad_scale_at(args, g, r * g.cols + c, sm);
+  quad_acc_terms_at(e, e_ls, args, g, cta, c, r, sm);
+  __syncthreads();
+  quad_acc_products_at(g, cta, c, r, sm);
+  __syncthreads();
+  for (uint32_t b = g.T + g.P; b > 1u; b = (b + 1u) >> 1) {
+    quad_acc_fold_at(g, b, cta, c, r, sm);
+    __syncthreads();
+  }
+  quad_acc_store_at(acc, out, g, cta, c, r, sm);
+}
+
 inline bool aligned16(const void* p) {
   return (unsigned long long)p % 16 == 0;
+}
+
+// Launches KQ with geometry g (quad_geom's, or a sweep's), the shared
+// memory's opt-in set first where it passes 48 KB (the attribute belongs
+// to the current device).
+inline int launch_quad_acc(const uint32_t* e, uint32_t e_ls,
+                           const int32_t* args, const uint32_t* acc,
+                           uint32_t* out, const QuadGeom& g,
+                           cudaStream_t s) {
+  const uint32_t smem = quad_smem(g);
+  if (smem > 48u * 1024u) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        quad_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const dim3 block(g.cols, g.lanes);
+  quad_acc_kernel<<<quad_ctas(g), block, smem, s>>>(e, e_ls, args, acc, out,
+                                                   g);
+  return (int)cudaGetLastError();
 }
 
 // KE mont_mul's tiled mode over n = B*w elements, y one row of w
@@ -916,6 +1170,33 @@ extern "C" int ligero_planar_quad_terms(const void* e, long long e_ls,
         <<<grid, ligero_pl::kRunThreads, 0, s>>>(ep, el, tp, (uint32_t)T, pp,
                                                  op, g);
   return (int)cudaGetLastError();
+}
+
+
+// KQ (the quadratic test's accumulation, above): e (8, B, n) limb planes
+// at limb stride e_ls >= B*n; args: T (x, y, z) then P (x, y) int32 row
+// indices of e, each in [0, B) (checked by the caller), then the (T+P, 8)
+// scalars r_t, triples first; acc and out (n, 8) AoS, 16-byte aligned, out
+// either acc or apart from it and from e:
+//   out[j] = acc[j] + tree_fold_t(term_t[j] * s_t * 2^-256),
+//   s_t = r_t * R^2 * 2^-256.
+// 1 <= T + P <= 1024; every plane offset must stay below 2^32.  Returns
+// cudaGetLastError() (or the shared-memory opt-in's error).
+extern "C" int ligero_planar_quad_acc(const void* e, long long e_ls,
+                                      long long B, long long n,
+                                      const void* args, long long T,
+                                      long long P, const void* acc,
+                                      void* out, void* stream) {
+  if (!ligero_pl::quad_acc_ok(e_ls, B, n, T, P) || e == nullptr ||
+      args == nullptr || acc == nullptr || out == nullptr ||
+      !ligero_pl::aligned16(acc) || !ligero_pl::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  return ligero_pl::launch_quad_acc(
+      (const uint32_t*)e, (uint32_t)e_ls, (const int32_t*)args,
+      (const uint32_t*)acc, (uint32_t*)out,
+      ligero_pl::quad_geom((uint32_t)n, (uint32_t)T, (uint32_t)P),
+      (cudaStream_t)stream);
 }
 
 #endif  // __CUDACC__

@@ -66,6 +66,11 @@ SIGNATURES = {
     # out (8, T+P, n), stream: the quadratic test's terms
     "ligero_planar_quad_terms": (_P, _I64, _I64, _I64, _P, _I64, _P, _I64,
                                  _P, _P),
+    # e, e_limb_stride, B, n, args (3T + 2P int32 row indices, then the
+    # (T+P, 8) scalars), T, P, acc (n, 8), out (n, 8), stream: KQ, the
+    # quadratic test's accumulation
+    "ligero_planar_quad_acc": (_P, _I64, _I64, _I64, _P, _I64, _I64, _P, _P,
+                               _P),
     # slots (64, X), tw, tw_limb_stride, tw_lbc, tw_lc (element i reads
     # tw[:, (i >> tw_lbc) << tw_lc | i & (2^tw_lc - 1)]; mode 1 only),
     # out (8, X), X, mode (0 final, 1 mid, 2 pack), stream

@@ -11,7 +11,10 @@ stages, ``butterfly_dit_pass``/``butterfly_dif_pass``;
 ``mulmod_planar``, ``mont_mul_scalar_planar``, ``mulmod_fma_planar``,
 ``mont_mul_tiled_planar``: mont_mul by one row tiled over the first
 operand, the sharded encode's coset twist, and ``quad_terms_planar``: the
-quadratic test's terms, read from the encoded batch by row index).
+quadratic test's terms, read from the encoded batch by row index) and KQ
+(``quad_acc_planar``: the check's whole quadratic-test accumulation, the
+terms, their prescaled scalars, the pairwise fold and the add into the
+(n, 8) accumulator, in one launch).
 
 Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
 (``_k_mont_mul``/``_k_mulmod`` :260,264 through ``mont_mul_aos`` /
@@ -20,7 +23,9 @@ Ports of the Pallas kernels of ``ligero_prover_tpu/ops/pallas/fieldmul.py``
 the planar entries of :351-383; ``quad_terms_planar`` is ``_k_mulmod``'s
 planar entry redesigned around its one caller, the check's
 ``jnp.take`` + ``mulmod_planar`` + ``submod_planar`` + ``concatenate`` at
-``ligero_prover_tpu/zkp/executor.py:233-250``).  The CUDA sources are
+``ligero_prover_tpu/zkp/executor.py:233-250``; ``quad_acc_planar`` takes
+that call with all the check wraps around it there, ``:230-250``).  The
+CUDA sources are
 ``csrc/fieldmul.cu`` and ``csrc/planar.cu``; this module holds the
 wrappers and, beside each kernel, its plain PyTorch version.  KA and KF
 replace XLA ops of the reference, not Pallas kernels: ``fo.addmod``/
@@ -79,6 +84,9 @@ TILED = "mont_mul_tiled_planar"   # KE mont_mul, y one row tiled over x
 TILED_MODE = 6
 KE_MODE = {**PLANAR_MODE, FMA: FMA_MODE, TILED: TILED_MODE}
 QUAD = "quad_terms_planar"    # KE mulmod around the check: rows by index
+QACC = "quad_acc_planar"      # KQ: the quadratic test's whole accumulation
+QACC_MAX_TERMS = 1024         # KQ's most terms T + P (csrc/planar.cu,
+#                               kQuadMaxTerms)
 STAGES = ("butterfly_dit", "butterfly_dif")   # KB: counted once per pass
 MAX_PASS = 8            # most stages in one KB pass: log2 of its 256-element
 #                         shared-memory tile (csrc/planar.cu, kLog2Tile)
@@ -87,7 +95,8 @@ FOLD = "masked_sum_aos"       # KF: acc + the B rows of terms, in order
 MULSUM = "masked_mulsum_aos"  # KF fused: acc + the B products x*y, in order
 LAUNCHES = {name: 0 for name in ("mont_mul", "mulmod", *AOS_MODE, FOLD,
                                  MULSUM,
-                                 *STAGES, *PLANAR_MODE, FMA, TILED, QUAD)}
+                                 *STAGES, *PLANAR_MODE, FMA, TILED, QUAD,
+                                 QACC)}
 PLAIN_CALLS = {name: Counter() for name in LAUNCHES}     # by device type
 TILED_SHAPES = Counter()  # the tiled mode's launches by (B rows, width w)
 MODE = {"mont_mul": 0, "mulmod": 1}   # ligero_mont_mul's `mode` argument
@@ -591,6 +600,45 @@ def quad_terms_planar_plain(e, tri_idx, pair_idx):
     return torch.cat([t_, d_], dim=1)
 
 
+def _tree_fold_plain(x):
+    """(8, N, n) -> (8, n): ``_tree_sum_mod_planar``'s association
+    (``zkp/executor.py``) over the limb chain: fold rows i and i + h of the
+    b rows left, an odd count carrying its first row (the head) on."""
+    while x.shape[1] > 1:
+        b = x.shape[1]
+        head = x[:, :1] if b % 2 else None
+        body = x[:, 1:] if b % 2 else x
+        h = body.shape[1] // 2
+        x = _on_planes(_addmod_chain, body[:, :h], body[:, h:])
+        if head is not None:
+            x = torch.cat([head, x], dim=1)
+    return x[:, 0]
+
+
+def _limb_rows(a, device) -> torch.Tensor:
+    """(R, 8) limbs, a tensor or uint32/int32 host array, as int32 on
+    `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.int32)
+    return to_torch(np.asarray(a).reshape(-1, NLIMB), device)
+
+
+def quad_acc_planar_plain(acc, e, tri_idx, pair_idx, tri_r, pair_r):
+    """Plain version of KQ: acc (n, 8) plus the pairwise fold of the T + P
+    terms of e (8, B, n) (:func:`quad_terms_planar_plain`) times their
+    scalars tri_r (T, 8) and pair_r (P, 8) prescaled by R^2
+    (:func:`mont_mul_scalar_planar_plain`, then
+    :func:`mont_mul_planar_plain` by row scalar), as the check composed
+    them before KQ."""
+    PLAIN_CALLS[QACC][acc.device.type] += 1
+    terms = quad_terms_planar_plain(e, tri_idx, pair_idx)      # (8, N, n)
+    r = torch.cat([_limb_rows(tri_r, e.device),
+                   _limb_rows(pair_r, e.device)]).T.contiguous()
+    scals = mont_mul_scalar_planar_plain(r, to_torch(R2_LIMBS, e.device))
+    prods = mont_mul_planar_plain(terms, scals[:, :, None])
+    return _addmod_chain(acc, _tree_fold_plain(prods).T)
+
+
 def _dit_stage(x, tw):
     h = tw.shape[1]
     if x.shape[2] != 2 * h:
@@ -715,29 +763,35 @@ def _eltwise(name: str, x: torch.Tensor, y: torch.Tensor,
     return out
 
 
-def quad_indices(e: torch.Tensor, tri_idx, pair_idx):
-    """quad-terms' argument check of its row indices, on the host: tri_idx
-    (T, 3) and pair_idx (P, 2) as int32 numpy arrays, each index in
-    [0, B) for e (8, B, n).  Indices come as numpy arrays or CPU tensors
-    (the check would otherwise wait for the device); an index out of
-    range raises IndexError, as ``index_select`` does."""
+def _host(name: str, a, what: str) -> np.ndarray:
+    """`a`, a numpy array or a CPU tensor, as numpy; a tensor on a device
+    raises (checking it would wait for the device)."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"{name}: {what} must be on the host, got a "
+                             f"tensor on {a.device}")
+        a = a.numpy()
+    return np.asarray(a)
+
+
+def quad_indices(e: torch.Tensor, tri_idx, pair_idx, name: str = QUAD):
+    """quad-terms' and KQ's argument check of the row indices, on the
+    host: tri_idx (T, 3) and pair_idx (P, 2) as int32 numpy arrays, each
+    index in [0, B) for e (8, B, n).  Indices come as numpy arrays or CPU
+    tensors (the check would otherwise wait for the device); an index out
+    of range raises IndexError, as ``index_select`` does."""
     if e.dim() != 3 or e.shape[0] != NLIMB:
-        raise ValueError(f"{QUAD}: e must be (8, B, n) limb planes, got "
+        raise ValueError(f"{name}: e must be (8, B, n) limb planes, got "
                          f"{tuple(e.shape)}")
     out = []
     for idx, width, rows in ((tri_idx, 3, "T"), (pair_idx, 2, "P")):
-        if isinstance(idx, torch.Tensor):
-            if idx.device.type != "cpu":
-                raise ValueError(f"{QUAD}: row indices must be on the host, "
-                                 f"got a tensor on {idx.device}")
-            idx = idx.numpy()
-        a = np.asarray(idx)
+        a = _host(name, idx, "row indices")
         if a.ndim != 2 or a.shape[1] != width \
                 or not np.issubdtype(a.dtype, np.integer):
-            raise ValueError(f"{QUAD}: row indices must be ({rows}, "
+            raise ValueError(f"{name}: row indices must be ({rows}, "
                              f"{width}) integers, got {a.dtype} {a.shape}")
         if a.size and (a.min() < 0 or a.max() >= e.shape[1]):
-            raise IndexError(f"{QUAD}: row index out of range [0, "
+            raise IndexError(f"{name}: row index out of range [0, "
                              f"{e.shape[1]}): {a.min()}..{a.max()}")
         out.append(np.ascontiguousarray(a, np.int32))
     return out
@@ -760,6 +814,56 @@ def _quad_terms(e: torch.Tensor, tri: np.ndarray,
                    e.data_ptr(), e_ls, b_, n, base if t_ else None, t_,
                    base + 12 * t_ if p_ else None, p_, out.data_ptr())
     LAUNCHES[QUAD] += 1
+    return out
+
+
+def quad_acc_args(acc: torch.Tensor, e: torch.Tensor, tri_idx, pair_idx,
+                  tri_r, pair_r) -> tuple[np.ndarray, int, int]:
+    """KQ's argument check, on the host, before anything runs: e (8, B, n)
+    limb planes, acc (n, 8) int32, the row indices as
+    :func:`quad_indices` checks them, the scalars tri_r (T, 8) and pair_r
+    (P, 8) integer host arrays (uint32 limbs or their int32 bit patterns),
+    and 1 <= T + P <= ``QACC_MAX_TERMS``.  Returns (args, T, P): args the
+    one int32 array that KQ reads, the 3T + 2P indices and then the
+    (T+P, 8) scalars."""
+    tri, pair = quad_indices(e, tri_idx, pair_idx, QACC)
+    n = e.shape[2]
+    if acc.dim() != 2 or tuple(acc.shape) != (n, NLIMB) \
+            or acc.dtype != torch.int32:
+        raise ValueError(f"{QACC}: acc must be int32 ({n}, {NLIMB}) for e "
+                         f"{tuple(e.shape)}, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    scal = []
+    for r, rows, count in ((tri_r, "T", len(tri)), (pair_r, "P", len(pair))):
+        a = _host(QACC, r, "scalars")
+        if a.shape != (count, NLIMB) or not np.issubdtype(a.dtype,
+                                                          np.integer):
+            raise ValueError(f"{QACC}: scalars must be ({rows}, {NLIMB}) = "
+                             f"({count}, {NLIMB}) integer limbs, got "
+                             f"{a.dtype} {a.shape}")
+        scal.append(a.astype(np.uint32).view(np.int32))
+    if not 1 <= len(tri) + len(pair) <= QACC_MAX_TERMS:
+        raise ValueError(f"{QACC}: T + P must be in [1, {QACC_MAX_TERMS}], "
+                         f"got {len(tri)} + {len(pair)}")
+    args = np.concatenate([tri.ravel(), pair.ravel(),
+                           *(a.ravel() for a in scal)])
+    return args, len(tri), len(pair)
+
+
+def _quad_acc(acc: torch.Tensor, e: torch.Tensor, args: np.ndarray,
+              t_: int, p_: int) -> torch.Tensor:
+    _check_cuda(QACC, acc, e)
+    e, e_ls = _with_plane_stride(e)
+    acc = _aligned(acc)
+    b_, n = e.shape[1:]
+    out = torch.empty((n, NLIMB), dtype=torch.int32, device=e.device)
+    # indices and scalars in one upload; from pageable memory it is staged
+    # at once and does not wait for the device
+    dev_args = torch.from_numpy(args).to(e.device, non_blocking=True)
+    kernels.launch("ligero_planar_quad_acc", QACC, e.device, e.data_ptr(),
+                   e_ls, b_, n, dev_args.data_ptr(), t_, p_, acc.data_ptr(),
+                   out.data_ptr())
+    LAUNCHES[QACC] += 1
     return out
 
 
@@ -896,6 +1000,22 @@ def quad_terms_planar(e, tri_idx, pair_idx):
     if _on_cpu(e):
         return quad_terms_planar_plain(e, tri, pair)
     return _quad_terms(e, tri, pair)
+
+
+def quad_acc_planar(acc, e, tri_idx, pair_idx, tri_r, pair_r):
+    """KQ, the quadratic test's accumulation: acc (n, 8) plus, folded
+    pairwise in ``_tree_sum_mod_planar``'s order, the terms of e (8, B, n)
+    (:func:`quad_terms_planar`'s: e[x]*e[y] - e[z] for the T triples of
+    tri_idx, e[x] - e[y] for the P pairs of pair_idx) each times its
+    scalar (tri_r (T, 8), pair_r (P, 8)) prescaled by R^2: the (n, 8)
+    result, a new tensor.  Indices and scalars are host arrays, checked
+    here before anything runs (:func:`quad_acc_args`); on a card they
+    travel in one upload."""
+    args, t_, p_ = quad_acc_args(acc, e, tri_idx, pair_idx, tri_r, pair_r)
+    if _on_cpu(acc, e):
+        return quad_acc_planar_plain(acc, e, tri_idx, pair_idx, tri_r,
+                                     pair_r)
+    return _quad_acc(acc, e, args, t_, p_)
 
 
 def mont_mul_scalar_planar(x, s):

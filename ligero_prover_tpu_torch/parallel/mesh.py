@@ -307,20 +307,24 @@ class ShardedExecutor(TorchExecutor):
         accs = [self._split(a, 0) for a in accs]
         e = self._coeffs(rows)
         r = None if rands_zero else self._coeffs(rands)
-        code_rs, tri_r, pair_r = (self._spread(self._limbs(a))
-                                  for a in (code_rs, tri_r, pair_r))
+        code_rs = self._spread(self._limbs(code_rs))
+        if not self.use_planar:
+            tri_r, pair_r = (self._spread(self._limbs(a))
+                             for a in (tri_r, pair_r))
         out = []
         for i, dev in enumerate(self.mesh.devices):
-            if self.use_planar:    # quad-terms checks host indices
+            if self.use_planar:    # KQ checks and uploads host arrays
                 terms, tri, pair = _check_terms_planar, tri_idx, pair_idx
+                tr, pr = tri_r, pair_r
             else:
                 terms = _check_terms_aos
                 tri, pair = (self._index(a).to(dev)
                              for a in (tri_idx, pair_idx))
+                tr, pr = tri_r[dev], pair_r[dev]
             out.append(terms(
                 *(a.parts[i] for a in accs), self._encode(e, i),
                 None if r is None else self._encode(r, i), code_rs[dev],
-                tri, tri_r[dev], pair, pair_r[dev]))
+                tri, tr, pair, pr))
         return tuple(self._shards([o[j] for o in out], 0) for j in range(3))
 
     def mask_step(self, accs, code_row, linear_row, quad_row):

@@ -117,14 +117,16 @@ def _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
                         pair_idx, pair_r):
     """Planar stage-2 accumulation (reference ``executor.py:175-252``) of
     the encoded rows e (8, B, n) and encoded randomness rows r (8, B, n),
-    or r None when the rands are zero: the codewords stay limb planes; each
-    test is one KE launch per op over the whole batch plus one tree sum.
+    or r None when the rands are zero: the codewords stay limb planes; the
+    code and linear tests are one KE launch per op over the whole batch
+    plus one tree sum, the quadratic test one KQ launch.
 
     Montgomery prescale: the per-row scalars are taken to s*R by one
     mont_mul with R^2, so each big product is ONE mont_mul
     (x * sR * R^-1 = x*s); the linear test (both operands plain) sums the
     mont_mul products first and scales the (8, n) sum by R once.
-    `tri_idx`/`pair_idx` are host arrays: quad-terms checks them there."""
+    `tri_idx`, `tri_r`, `pair_idx` and `pair_r` are host arrays: KQ checks
+    them there and uploads them together."""
     r2 = _r2(e.device)
 
     def scale_r(v):
@@ -141,14 +143,12 @@ def _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
     if r is not None:
         lin = scale_r(_tree_sum_mod_planar(fm.mont_mul_planar(e, r)))
         linear = fm.addmod_planar(planes(linear), lin).T.contiguous()
-    # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms: the
-    # triple and pair terms as one (8, T+P, n) launch that reads the rows
-    # of e by index, then one product and one tree sum
-    terms = fm.quad_terms_planar(e, tri_idx, pair_idx)
-    scals = scale_r(torch.cat([tri_r, pair_r]).T.contiguous())   # (8, T+P)
-    prods = fm.mont_mul_planar(terms, scals[:, :, None])
-    quad = fm.addmod_planar(planes(quad), _tree_sum_mod_planar(prods))
-    return code.T.contiguous(), linear, quad.T.contiguous()
+    # quadratic test: += sum_t tri_r[t]*(e_x*e_y - e_z) + pair terms, in
+    # one KQ launch: the terms from the rows of e read by index, the
+    # scalars' prescale, the products, the tree sum's folds and the add
+    # into the (n, 8) accumulator
+    quad = fm.quad_acc_planar(quad, e, tri_idx, pair_idx, tri_r, pair_r)
+    return code.T.contiguous(), linear, quad
 
 
 def _check_terms_aos(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
@@ -296,13 +296,14 @@ class TorchExecutor:
 
     def check_step(self, accs, rows, rands, code_rs, tri_idx, tri_r,
                    pair_idx, pair_r, rands_zero=False):
-        # the planar path reads the quadratic rows by index on the device
-        # and checks the indices on the host
-        index = (lambda a: a) if self.use_planar else self._index
+        # the planar path's KQ checks the quadratic test's indices and
+        # scalars on the host and uploads them together
+        index, scal = ((lambda a: a,) * 2 if self.use_planar
+                       else (self._index, self._limbs))
         return _check_body(*accs, self._limbs(rows), self._limbs(rands),
                            self._limbs(code_rs), index(tri_idx),
-                           self._limbs(tri_r), index(pair_idx),
-                           self._limbs(pair_r), self.codec.dom_k,
+                           scal(tri_r), index(pair_idx),
+                           scal(pair_r), self.codec.dom_k,
                            self.codec.dom_n, self.n, self.use_planar,
                            rands_zero, self._mxu_tabs())
 

@@ -194,6 +194,8 @@ def _plain_args(gen):
         "mulmod_fma_planar_plain": (planes((2, 16)), planes((2, 16)),
                                     planes((2, 16))),
         "quad_terms_planar_plain": (planes((2, 16)), tri, pair),
+        "quad_acc_planar_plain": (aos((16,)), planes((2, 16)), tri, pair,
+                                  aos((2,)), aos((1,))),
         "butterfly_dit_plain": (planes((2, 16)), tws[0]),
         "butterfly_dif_plain": (planes((2, 16)), tws[0]),
         "butterfly_dit_pass_plain": (planes((2, 16)), tws, 0, 4),

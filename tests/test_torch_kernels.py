@@ -396,6 +396,60 @@ def test_quad_terms_kernel_matches_plain(cuda_device, n):
     assert tfm.LAUNCHES[tfm.QUAD] == before + len(cases)
 
 
+@pytest.mark.parametrize("n", [1024, 1030, 924])
+def test_quad_acc_kernel_matches_plain(cuda_device, n):
+    """KQ on the card against its plain version: random and repeated
+    indices, x = y = z, zero-padded entries (index 0, scalar 0), T + P odd
+    (3 + 2) and at a head's level (3 + 3), no pairs, no triples, one term,
+    non-canonical rows, scalars and acc with the edge values, a
+    plane-stride view of the batch; at n = 924, T = P = 400 take one
+    column a CTA and 51,200 bytes of shared memory (the dynamic opt-in;
+    compared with the plain version on the card).  An index out of range
+    and scalars on the card raise before the launch."""
+    gen = np.random.default_rng(n + 1)
+    e = _planes(rand_limbs(gen, (7, n), False), cuda_device)
+    edges = ints_to_limbs(NONCANONICAL + EDGES)
+    e[:, 0, :len(edges)] = _planes(edges, cuda_device)
+    e[:, 1, :len(edges)] = _planes(edges[::-1].copy(), cuda_device)
+    acc = to_t(rand_limbs(gen, (n,), False), cuda_device)
+    acc[:len(edges)] = to_t(edges, cuda_device)
+
+    def quads(t_, p_, index="random"):
+        tri = gen.integers(0, 7, (t_, 3)).astype(np.int32)
+        pair = gen.integers(0, 7, (p_, 2)).astype(np.int32)
+        tri_r, pair_r = (rand_limbs(gen, (k,), False) for k in (t_, p_))
+        tri_r[:min(t_, len(edges))] = edges[:t_]
+        if index == "same":
+            tri[:] = np.arange(t_)[:, None] % 7
+            pair[:] = np.arange(p_)[:, None] % 7
+        elif index == "padded":
+            tri[1:], pair[1:], tri_r[1:], pair_r[1:] = 0, 0, 0, 0
+        return tri, pair, tri_r, pair_r
+    cases = [(e, quads(16, 16)), (e, quads(16, 16, "same")),
+             (e, quads(16, 16, "padded")), (e, quads(3, 2)),
+             (e, quads(3, 3)), (e, quads(5, 0)), (e, quads(0, 4)),
+             (e, quads(1, 0)), (e[:, 2:6], quads(6, 6))]
+    if n == 924:
+        cases = [(e, quads(400, 400)), (e, quads(16, 16))]
+    before = tfm.LAUNCHES[tfm.QACC]
+    for x, (tri, pair, tri_r, pair_r) in cases:
+        tri, pair = tri % x.shape[1], pair % x.shape[1]
+        got = tfm.quad_acc_planar(acc, x, tri, pair, tri_r, pair_r)
+        on = cuda_device if n == 924 else "cpu"
+        want = tfm.quad_acc_planar_plain(acc.to(on), x.to(on), tri, pair,
+                                         tri_r, pair_r)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu())
+    assert tfm.LAUNCHES[tfm.QACC] == before + len(cases)
+    tri, pair, tri_r, pair_r = quads(4, 4)
+    with pytest.raises(IndexError):
+        tfm.quad_acc_planar(acc, e, tri + 7, pair, tri_r, pair_r)
+    with pytest.raises(ValueError, match="on the host"):
+        tfm.quad_acc_planar(acc, e, tri, pair, to_t(tri_r, cuda_device),
+                            pair_r)
+    assert tfm.LAUNCHES[tfm.QACC] == before + len(cases)
+
+
 def test_mulmod_fma_kernel_matches_plain(cuda_device):
     """mulmod_fma on full planes (16-byte units, and single elements at an
     odd size), times a per-row scalar, and with an addend whose planes
