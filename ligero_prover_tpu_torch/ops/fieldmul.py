@@ -74,7 +74,7 @@ import torch.nn.functional as nnf
 from ..field import bn254 as F
 from .. import kernels
 from .fieldops import MASK32, P_INTS, R2_LIMBS, NLIMB, _add, _cond_sub, \
-    _select, _sub, narrow, to_torch, widen
+    _select, _sub, narrow, to_torch, upload, widen
 
 PLANAR_MODE = {"addmod_planar": 0, "submod_planar": 1, "mont_mul_planar": 2,
                "mulmod_planar": 3, "mont_mul_scalar_planar": 4}
@@ -807,8 +807,9 @@ def _quad_terms(e: torch.Tensor, tri: np.ndarray,
                       device=e.device)
     # one upload of both index sets; from pageable memory it is staged at
     # once and does not wait for the device
-    idx = torch.from_numpy(np.concatenate([tri.ravel(), pair.ravel()])) \
-        .to(e.device, non_blocking=True)
+    idx = upload(torch.from_numpy(np.concatenate([tri.ravel(),
+                                                  pair.ravel()])),
+                 e.device, non_blocking=True)
     base = idx.data_ptr()
     kernels.launch("ligero_planar_quad_terms", QUAD, e.device,
                    e.data_ptr(), e_ls, b_, n, base if t_ else None, t_,
@@ -859,7 +860,7 @@ def _quad_acc(acc: torch.Tensor, e: torch.Tensor, args: np.ndarray,
     out = torch.empty((n, NLIMB), dtype=torch.int32, device=e.device)
     # indices and scalars in one upload; from pageable memory it is staged
     # at once and does not wait for the device
-    dev_args = torch.from_numpy(args).to(e.device, non_blocking=True)
+    dev_args = upload(torch.from_numpy(args), e.device, non_blocking=True)
     kernels.launch("ligero_planar_quad_acc", QACC, e.device, e.data_ptr(),
                    e_ls, b_, n, dev_args.data_ptr(), t_, p_, acc.data_ptr(),
                    out.data_ptr())

@@ -23,6 +23,7 @@ import torch
 
 from ..field import bn254 as F
 from ..field.limbs import int_to_limbs
+from ..utils.timer import count, span
 
 NLIMB = 8
 MASK32 = 0xFFFFFFFF
@@ -34,14 +35,32 @@ R_MONT_LIMBS = int_to_limbs(F.R % F.MODULUS)      # 1 in Montgomery form
 
 
 def to_torch(limbs: np.ndarray, device=None) -> torch.Tensor:
-    """uint32 limbs (numpy) -> int32 bit patterns on `device`."""
+    """uint32 limbs (numpy) -> int32 bit patterns on `device` (`upload`)."""
     arr = np.ascontiguousarray(np.asarray(limbs, np.uint32)).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    return upload(torch.from_numpy(arr.copy()), device)
+
+
+def upload(t: torch.Tensor, device, non_blocking: bool = False):
+    """`t`, a tensor in host memory, on `device`: every upload of the
+    program goes through here, counted in ``htod.bytes``.  A blocking copy
+    from pageable memory first waits for the device's stream to drain, so
+    it runs inside a ``host.wait`` span; a non-blocking one only stages
+    the bytes."""
+    if device is None:
+        return t
+    count("htod.bytes", t.numel() * t.element_size())
+    if non_blocking:
+        return t.to(device, non_blocking=True)
+    with span("host.wait"):
+        return t.to(device)
 
 
 def to_numpy(x: torch.Tensor) -> np.ndarray:
-    """int32 bit patterns -> uint32 limbs (numpy, host)."""
-    return x.detach().cpu().contiguous().numpy().view(np.uint32)
+    """int32 bit patterns -> uint32 limbs (numpy, host): the host waits
+    for the device (``host.wait``; ``dtoh.bytes``)."""
+    count("dtoh.bytes", x.numel() * x.element_size())
+    with span("host.wait"):
+        return x.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
 def widen(x: torch.Tensor) -> list[torch.Tensor]:

@@ -137,7 +137,7 @@ def build_domain_tables(n: int, w: int, device=None) -> dict:
 
     cg_fwd, cg_inv = cg_tws(w), cg_tws(w_inv)
     return {
-        "rev": torch.from_numpy(_bitrev(n)).to(device),
+        "rev": fo.upload(torch.from_numpy(_bitrev(n)), device),
         "cg_fwd": cg_fwd,
         "cg_inv": cg_inv,
         "cg_fwd_pl": cg_fwd.transpose(1, 2).contiguous(),

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import fieldops as fo
 
 MASK32 = 0xFFFFFFFF
 
@@ -71,7 +72,7 @@ def reset_counts():
 def initial_state(num_cols: int, device=None) -> torch.Tensor:
     """(8, C) int32."""
     init = torch.from_numpy(INIT_STATE.view(np.int32).copy())
-    return init[:, None].expand(8, num_cols).contiguous().to(device)
+    return fo.upload(init[:, None].expand(8, num_cols).contiguous(), device)
 
 
 def _rotr(x, r):
@@ -219,7 +220,7 @@ def finalize(state, pending, has_pending: bool, rows_absorbed: int):
 def digests_to_bytes(state) -> list[bytes]:
     """(8, C) -> per-column 32-byte digests (words big-endian)."""
     if isinstance(state, torch.Tensor):
-        state = state.detach().cpu().numpy()
+        state = fo.to_numpy(state)
     arr = np.asarray(state).view(np.uint32).astype(">u4")   # (8, C)
     cols = np.ascontiguousarray(arr.T)                      # (C, 8)
     raw = cols.tobytes()

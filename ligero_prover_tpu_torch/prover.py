@@ -25,7 +25,7 @@ import numpy as np
 from .field import bn254 as F
 from .field.limbs import limbs_to_ints
 from .params import RowGeometry, SAMPLE_SIZE, IV_ANY
-from .utils.timer import timer
+from .utils.timer import span, spanned, timer
 from .utils.log import get_logger
 from .zkp import transcript
 from .zkp.csprng import HashRandomEngine
@@ -84,6 +84,7 @@ def _stage3_replay(executor, tape: RowTape, sample_index) -> list:
     return [arr[i] for i in range(arr.shape[0])]
 
 
+@spanned("prover.prove")
 def prove(program, *, geometry: RowGeometry = RowGeometry(),
           instance_hash: bytes = bytes(32),
           program_hash: bytes = bytes(32),
@@ -126,7 +127,8 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
     with timer("stage1"):
         ctx1 = Stage1Context(executor, l, row_tape=tape)
         ctx1.init_encoding_random(encoding_seed, IV_ANY)
-        program(ctx1)
+        with span("vm.run"):
+            program(ctx1)
         ctx1.finalize()
         m1 = ctx1.backend.manager
         num_linear, num_quadratic = m1.linear_counter, m1.quadratic_counter
@@ -142,7 +144,8 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
         ctx2 = Stage2Context(executor, l)
         ctx2.init_encoding_random(encoding_seed, IV_ANY)
         ctx2.init_witness_random(seed1, IV_ANY)
-        program(ctx2)
+        with span("vm.run"):
+            program(ctx2)
         ctx2.finalize()
         code_cw, linear_cw, quad_cw = ctx2.codewords()
         constsum = ctx2.linear_sums()
@@ -169,7 +172,8 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
         else:
             ctx3 = Stage3Context(executor, l, sample_index)
             ctx3.init_encoding_random(encoding_seed, IV_ANY)
-            program(ctx3)
+            with span("vm.run"):
+                program(ctx3)
             ctx3.finalize()
             host_samplings = ctx3.host_samplings
             samplings = ctx3.samplings_u32()

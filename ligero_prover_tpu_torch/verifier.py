@@ -26,7 +26,7 @@ from .vm.values import WasmTrap, ExitProgram
 from .field import bn254 as F
 from .field.limbs import limbs_to_ints
 from .params import RowGeometry, SAMPLE_SIZE, IV_ANY
-from .utils.timer import timer
+from .utils.timer import span, spanned, timer
 from .zkp import transcript
 from .zkp.csprng import HashRandomEngine
 from .zkp.sampling import portable_sample
@@ -60,6 +60,7 @@ def _field_sum(vals) -> int:
     return acc
 
 
+@spanned("verifier.verify")
 def verify(program, proof_blob: bytes, *,
            geometry: RowGeometry = RowGeometry(),
            instance_hash: bytes = bytes(32),
@@ -87,7 +88,8 @@ def verify(program, proof_blob: bytes, *,
             vctx = VerifierContext(executor, l, sample_index,
                                    proof.host_samplings)
             vctx.init_witness_random(seed1, IV_ANY)
-            program(vctx)
+            with span("vm.run"):
+                program(vctx)
             vctx.finalize()
         except (WasmTrap, ExitProgram, ProofRejected) as e:
             # Protocol-level rejection: a forged/truncated proof makes the

@@ -115,8 +115,8 @@ class Arena:
         rows = torch.zeros((F.NUM_BITS,) + tuple(x.shape),
                            dtype=torch.int32, device=self.device)
         rows[:, :, 0] = bits[:, :F.NUM_BITS].T
-        self.rows[torch.from_numpy(slots.astype(np.int64)).to(
-            self.device)] = rows
+        self.rows[fo.upload(torch.from_numpy(slots.astype(np.int64)),
+                            self.device)] = rows
         return rows
 
 

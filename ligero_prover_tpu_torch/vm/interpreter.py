@@ -31,6 +31,7 @@ from .values import (Num, Ref, WasmTrap, ExitProgram, I32, I64, F32, F64,
                      MASK32, MASK64, u32, u64, f32, f64)
 from .module import Store, ModuleInstance, Function, instantiate
 from ..zkp.backend import Managed, DecomposedBits, SIGN, UNSIGN
+from ..utils.timer import span
 
 
 def _sdiv(a: int, b: int) -> int:
@@ -197,7 +198,8 @@ class Interpreter:
             mod = ctx.host_modules.get(mod_name)
             if mod is None:
                 raise WasmTrap(f"unknown host module {mod_name}")
-            mod.call(field)
+            with span("vm.hostcall"):
+                mod.call(field)
             return
         nparams = len(fn.type.params)
         args = [ctx.pop() for _ in range(nparams)][::-1]

@@ -24,6 +24,7 @@ from .backend import Backend
 from .witness import (STAGE1_POLICY, STAGE2_POLICY, STAGE3_POLICY,
                       VERIFIER_POLICY, RandomPolicy)
 from .executor import TorchExecutor, NLIMB
+from ..utils.timer import count, span
 from ..params import NUM_CODE_TEST, NUM_LINEAR_TEST, NUM_QUADRATIC_TEST
 
 
@@ -69,7 +70,8 @@ class _ContextBase:
         return self.backend.manager.constant_sum
 
     def finalize(self):
-        self.backend.finalize()
+        with span("witness.finalize"):      # the mask rows, their commits
+            self.backend.finalize()
 
     # -- vbn254fr batch-row support (``nonbatch_context.hpp:497-553``) -----
 
@@ -194,30 +196,34 @@ class Stage1Context(_ContextBase):
     def _flush(self):
         if not self._queue:
             return
-        cnt = len(self._queue)
-        batch = self.executor.stack_batch(self._queue,
-                                          self.executor.batch_rows, self.k)
-        self.sha = self.executor.commit_step(self.sha, batch, cnt)
-        if self.row_tape is not None:
-            self.row_tape.append_batch(batch, cnt, self.k)
-        self.rows_absorbed += cnt
-        self._queue = []
+        with span("ctx.flush"):
+            cnt = len(self._queue)
+            batch = self.executor.stack_batch(
+                self._queue, self.executor.batch_rows, self.k)
+            self.sha = self.executor.commit_step(self.sha, batch, cnt)
+            if self.row_tape is not None:
+                self.row_tape.append_batch(batch, cnt, self.k)
+            self.rows_absorbed += cnt
+            count("ctx.rows", cnt)
+            self._queue = []
 
     def _commit_2k_pair(self, code, linear, quad):
         # code mask is a k-row; linear/quad masks are 2k rows.  Masks use
         # dedicated 1/2-row batches (one extra, cheap-to-compile jit
         # signature per geometry) instead of padding a full batch_rows
         # encode for 1-3 rows (VERDICT r4 weak #5).
-        batch = _to_limbs(code, self.k)[None]
-        self.sha = self.executor.commit_step(self.sha, batch, 1)
-        batch2 = np.stack([_to_limbs(linear, 2 * self.k),
-                           _to_limbs(quad, 2 * self.k)])
-        self.sha = self.executor.commit_step(self.sha, batch2, 2,
-                                             width_2k=True)
-        if self.row_tape is not None:
-            self.row_tape.append_batch(batch, 1, self.k)
-            self.row_tape.append_batch(batch2, 2, 2 * self.k)
-        self.rows_absorbed += 3
+        with span("ctx.flush"):
+            batch = _to_limbs(code, self.k)[None]
+            self.sha = self.executor.commit_step(self.sha, batch, 1)
+            batch2 = np.stack([_to_limbs(linear, 2 * self.k),
+                               _to_limbs(quad, 2 * self.k)])
+            self.sha = self.executor.commit_step(self.sha, batch2, 2,
+                                                 width_2k=True)
+            if self.row_tape is not None:
+                self.row_tape.append_batch(batch, 1, self.k)
+                self.row_tape.append_batch(batch2, 2, 2 * self.k)
+            self.rows_absorbed += 3
+            count("ctx.rows", 3)
 
     def finalize(self):
         super().finalize()   # flushes rows + masks through callbacks
@@ -330,37 +336,41 @@ class Stage2Context(_ContextBase):
     def _flush(self):
         if not self._rows:
             return
-        bsz = self.executor.batch_rows
-        code_rs = np.zeros((bsz, NLIMB), np.uint32)
-        cnt = len(self._rows)
-        rows = self.executor.stack_batch(self._rows, bsz, self.k)
-        rands_zero = all(r is None for r in self._rands)
-        if rands_zero:
-            # batch rows carry no randomness row: the pipeline's
-            # rands_zero variant skips the second encode, and one
-            # device-cached zeros buffer serves as the placeholder operand
-            if self._zero_rands is None:
-                self._zero_rands = self.executor.zeros((bsz, self.k, NLIMB))
-            rands = self._zero_rands
-        else:
-            rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
-            for i, r in enumerate(self._rands):
-                if r is not None:
-                    rands[i] = r
-        code_rs[:cnt] = np.stack(self._code_rs)
-        tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
-            bsz, self._tris, self._pairs)
-        self.accs = self.executor.check_step(
-            self.accs, rows, rands, code_rs, tri_idx, tri_r,
-            pair_idx, pair_r, rands_zero=rands_zero)
-        self._rows, self._rands, self._code_rs = [], [], []
-        self._tris, self._pairs = [], []
+        with span("ctx.flush"):
+            bsz = self.executor.batch_rows
+            code_rs = np.zeros((bsz, NLIMB), np.uint32)
+            cnt = len(self._rows)
+            rows = self.executor.stack_batch(self._rows, bsz, self.k)
+            rands_zero = all(r is None for r in self._rands)
+            if rands_zero:
+                # batch rows carry no randomness row: the pipeline's
+                # rands_zero variant skips the second encode, and one
+                # device-cached zeros buffer serves as the placeholder
+                # operand
+                if self._zero_rands is None:
+                    self._zero_rands = self.executor.zeros(
+                        (bsz, self.k, NLIMB))
+                rands = self._zero_rands
+            else:
+                rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
+                for i, r in enumerate(self._rands):
+                    if r is not None:
+                        rands[i] = r
+            code_rs[:cnt] = np.stack(self._code_rs)
+            tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
+                bsz, self._tris, self._pairs)
+            self.accs = self.executor.check_step(
+                self.accs, rows, rands, code_rs, tri_idx, tri_r,
+                pair_idx, pair_r, rands_zero=rands_zero)
+            self._rows, self._rands, self._code_rs = [], [], []
+            self._tris, self._pairs = [], []
 
     def mask_callback(self, code, linear, quad):
         self._flush()
-        self.accs = self.executor.mask_step(
-            self.accs, _to_limbs(code, self.k),
-            _to_limbs(linear, 2 * self.k), _to_limbs(quad, 2 * self.k))
+        with span("ctx.flush"):
+            self.accs = self.executor.mask_step(
+                self.accs, _to_limbs(code, self.k),
+                _to_limbs(linear, 2 * self.k), _to_limbs(quad, 2 * self.k))
 
     def finalize(self):
         super().finalize()
@@ -394,17 +404,19 @@ class Stage3Context(_ContextBase):
 
     def mask_callback(self, code, linear, quad):
         self._flush()
-        # dedicated 1-row open for the code mask (no full-batch padding)
-        batch1 = _to_limbs(code, self.k)[None]
-        out1 = self.executor.fetch(
-            self.executor.open_step(batch1, self.sample_index))
-        self.host_samplings.append(out1[0])
-        batch2 = np.stack([_to_limbs(linear, 2 * self.k),
-                           _to_limbs(quad, 2 * self.k)])
-        out = self.executor.open_step(batch2, self.sample_index,
-                                      width_2k=True)
-        arr = self.executor.fetch(out)
-        self.host_samplings.extend([arr[0], arr[1]])
+        with span("ctx.flush"):
+            # dedicated 1-row open for the code mask (no full-batch
+            # padding)
+            batch1 = _to_limbs(code, self.k)[None]
+            out1 = self.executor.fetch(
+                self.executor.open_step(batch1, self.sample_index))
+            self.host_samplings.append(out1[0])
+            batch2 = np.stack([_to_limbs(linear, 2 * self.k),
+                               _to_limbs(quad, 2 * self.k)])
+            out = self.executor.open_step(batch2, self.sample_index,
+                                          width_2k=True)
+            arr = self.executor.fetch(out)
+            self.host_samplings.extend([arr[0], arr[1]])
 
     # -- batch hooks (``nonbatch_context.hpp:996-1048``): sample each
     # committed batch row like any witness row.
@@ -431,13 +443,14 @@ class Stage3Context(_ContextBase):
     def _flush(self):
         if not self._queue:
             return
-        cnt = len(self._queue)
-        batch = self.executor.stack_batch(self._queue,
-                                          self.executor.batch_rows, self.k)
-        out = self.executor.fetch(
-            self.executor.open_step(batch, self.sample_index))
-        self.host_samplings.extend(out[i] for i in range(cnt))
-        self._queue = []
+        with span("ctx.flush"):
+            cnt = len(self._queue)
+            batch = self.executor.stack_batch(
+                self._queue, self.executor.batch_rows, self.k)
+            out = self.executor.fetch(
+                self.executor.open_step(batch, self.sample_index))
+            self.host_samplings.extend(out[i] for i in range(cnt))
+            self._queue = []
 
     def finalize(self):
         super().finalize()
@@ -509,10 +522,12 @@ class VerifierContext(_ContextBase):
 
     def mask_callback(self, code, linear, quad):
         self._flush()
-        ms = np.stack([self._pop_sample() for _ in range(3)])
-        self.sha, self.accs = self.executor.verify_mask_step(
-            self.sha, self.accs, ms)
-        self.rows_absorbed += 3
+        with span("ctx.flush"):
+            ms = np.stack([self._pop_sample() for _ in range(3)])
+            self.sha, self.accs = self.executor.verify_mask_step(
+                self.sha, self.accs, ms)
+            self.rows_absorbed += 3
+            count("ctx.rows", 3)
 
     # -- batch hooks (``nonbatch_context.hpp:1306-1350``): the verifier
     # replays batch checks directly on the popped sampled columns.
@@ -564,22 +579,24 @@ class VerifierContext(_ContextBase):
     def _flush(self):
         if not self._samples:
             return
-        bsz = self.executor.batch_rows
-        cnt = len(self._samples)
-        samples = np.zeros((bsz, self.S, NLIMB), np.uint32)
-        rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
-        code_rs = np.zeros((bsz, NLIMB), np.uint32)
-        samples[:cnt] = np.stack(self._samples)
-        rands[:cnt] = np.stack(self._rands)
-        code_rs[:cnt] = np.stack(self._code_rs)
-        tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
-            bsz, self._tris, self._pairs)
-        self.sha, self.accs = self.executor.verify_step(
-            self.sha, self.accs, samples, rands, code_rs, tri_idx, tri_r,
-            pair_idx, pair_r, self.sample_index, cnt)
-        self.rows_absorbed += cnt
-        self._samples, self._rands, self._code_rs = [], [], []
-        self._tris, self._pairs = [], []
+        with span("ctx.flush"):
+            bsz = self.executor.batch_rows
+            cnt = len(self._samples)
+            samples = np.zeros((bsz, self.S, NLIMB), np.uint32)
+            rands = np.zeros((bsz, self.k, NLIMB), np.uint32)
+            code_rs = np.zeros((bsz, NLIMB), np.uint32)
+            samples[:cnt] = np.stack(self._samples)
+            rands[:cnt] = np.stack(self._rands)
+            code_rs[:cnt] = np.stack(self._code_rs)
+            tri_idx, tri_r, pair_idx, pair_r = _pack_quads(
+                bsz, self._tris, self._pairs)
+            self.sha, self.accs = self.executor.verify_step(
+                self.sha, self.accs, samples, rands, code_rs, tri_idx, tri_r,
+                pair_idx, pair_r, self.sample_index, cnt)
+            self.rows_absorbed += cnt
+            count("ctx.rows", cnt)
+            self._samples, self._rands, self._code_rs = [], [], []
+            self._tris, self._pairs = [], []
 
     def finalize(self):
         super().finalize()

@@ -42,6 +42,7 @@ from ..ops.fieldops import R2_LIMBS
 from ..ops.mxu_ntt import encode_rows_mxu, encode_rows_mxu_core
 from ..ops.ntt import RSCodec, _mxu_use, _planar_use, decode_rows, \
     encode_rows, encode_rows_cg, encode_rows_cg_planar_core
+from ..utils.timer import span
 
 NLIMB = 8
 _R2: dict = {}
@@ -230,7 +231,8 @@ class TorchExecutor:
             raise RuntimeError("device 'cuda' requested but "
                                "torch.cuda.is_available() is false")
         self.k, self.n = k, n
-        self.codec = RSCodec(k, n, self.device)
+        with span("executor.init"):         # the codec's domain tables
+            self.codec = RSCodec(k, n, self.device)
         self.batch_rows = batch_rows
         self.use_planar = _planar_use(self.device)
         self.use_mxu = _mxu_use(self.device)
@@ -246,8 +248,8 @@ class TorchExecutor:
     def _index(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             return a.to(self.device, torch.int64)
-        return torch.from_numpy(
-            np.asarray(a, np.int64)).to(self.device)
+        return fo.upload(torch.from_numpy(np.asarray(a, np.int64)),
+                         self.device)
 
     def fetch(self, x) -> np.ndarray:
         """Device -> host transfer of a pipeline output, as uint32 limbs."""

@@ -1,0 +1,16 @@
+"""Layer: front end (``vm/*``). Self time of the ``vm.run`` spans, each
+``program(ctx)`` call: the interpreter's dispatch and the witness manager,
+less the host calls, flushes and waits inside it, per request (each
+``prover.prove`` call of the traced window), from the program's own spans
+(``utils/timer.per_request``: recorded while the profiler runs, on
+``time.time_ns()``)."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    try:
+        from ligero_prover_tpu_torch.utils.timer import per_request
+    except ImportError:             # a program without spans
+        return None
+    return per_request("vm.run", "self_s")

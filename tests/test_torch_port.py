@@ -35,11 +35,45 @@ COPIED = [
 ]
 
 
+# The port's spans (``utils/timer.py``) in a copied module: each edit is
+# (the reference's text, the port's), and the rest must not drift.
+SPAN_EDITS = {
+    "vm/interpreter.py": [
+        ("from ..zkp.backend import Managed, DecomposedBits, SIGN, UNSIGN\n",
+         "from ..zkp.backend import Managed, DecomposedBits, SIGN, UNSIGN\n"
+         "from ..utils.timer import span\n"),
+        ("            mod.call(field)\n",
+         '            with span("vm.hostcall"):\n'
+         "                mod.call(field)\n"),
+    ],
+    "utils/timer.py": [
+        ('printed with show_timers()."""\n',
+         "printed with show_timers();\n"
+         'and, below, the port\'s spans and counters."""\n'),
+        ("import time\nfrom contextlib import contextmanager\n",
+         "import contextlib\nimport functools\nimport time\n"
+         "from contextlib import contextmanager\n\n"
+         "from torch.autograd import profiler as _profiler\n"),
+        ("        yield\n",
+         "        with span(name):\n"
+         "            yield\n"),
+        ("    _STACK.clear()\n",
+         "    _STACK.clear()\n"
+         "    _clear_spans()\n"),
+    ],
+}
+# A copied module may end in code of the port's own, below this line.
+PORT_PART = "\n\n# -- The port's spans and counters "
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_has_not_drifted(rel):
     ref = (REF / rel).read_text()
     want = re.sub(r"\bligero_prover_tpu\b", "ligero_prover_tpu_torch", ref)
-    assert (PORT / rel).read_text() == want
+    for old, new in SPAN_EDITS.get(rel, []):
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    assert (PORT / rel).read_text().split(PORT_PART)[0] == want
 
 
 # pure-Python table functions of the int8 engine, copied function by
