@@ -71,14 +71,10 @@ def serialize_proof(root: bytes, code: np.ndarray, linear: np.ndarray,
         h = mt.sibling_hashes.add()
         h.value = siblings[pos]
 
-    proof.encoded_code.values.extend(
-        np.asarray(code, np.uint32).reshape(-1).tolist())
-    proof.encoded_linear.values.extend(
-        np.asarray(linear, np.uint32).reshape(-1).tolist())
-    proof.encoded_quadratic.values.extend(
-        np.asarray(quad, np.uint32).reshape(-1).tolist())
-    proof.sampled_data.values.extend(
-        np.asarray(samplings, np.uint32).reshape(-1).tolist())
+    _load_packed(proof.encoded_code, code)
+    _load_packed(proof.encoded_linear, linear)
+    _load_packed(proof.encoded_quadratic, quad)
+    _load_packed(proof.sampled_data, samplings)
 
     # mtime=0: the reference's boost gzip stream embeds no timestamp either;
     # proof bytes must be a pure function of the transcript for the parity
@@ -118,9 +114,50 @@ def deserialize_proof(blob: bytes) -> ProofData:
 
     return ProofData(
         root,
-        np.asarray(proof.encoded_code.values, np.uint32),
-        np.asarray(proof.encoded_linear.values, np.uint32),
-        np.asarray(proof.encoded_quadratic.values, np.uint32),
+        _read_packed(proof.encoded_code),
+        _read_packed(proof.encoded_linear),
+        _read_packed(proof.encoded_quadratic),
         leaf_indices, siblings,
-        np.asarray(proof.sampled_data.values, np.uint32),
+        _read_packed(proof.sampled_data),
         metadata=md)
+
+
+# -- The port's own codec of the bulk vectors ----------------------------
+#
+# A ``FixedU32Vector`` is one packed field 1: the byte 0x0a, the varint
+# byte length, then little-endian u32s.  The four bulk vectors cross
+# between numpy and protobuf as those bytes, one buffer copy each way,
+# and not as one Python int per element; protobuf still parses the
+# proof and writes its wire bytes.
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n > 0x7F:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _load_packed(vec, x) -> None:
+    """Fills the empty ``FixedU32Vector`` `vec` with the values of
+    ``np.asarray(x, np.uint32).reshape(-1)``."""
+    a = np.ascontiguousarray(np.asarray(x, np.uint32).reshape(-1), "<u4")
+    if a.size == 0:
+        vec.values.extend([])   # sets `vec`, empty, as the reference does
+        return
+    vec.MergeFromString(b"\x0a" + _varint(a.nbytes) + a.tobytes())
+
+
+def _read_packed(vec) -> np.ndarray:
+    """`vec`'s values as a 1-D, owned uint32 array.  With its unknown
+    fields dropped, `vec` serializes to nothing or to its one packed
+    field 1, which ends in the values."""
+    vec.DiscardUnknownFields()
+    raw = vec.SerializeToString()
+    if not raw:
+        return np.zeros(0, np.uint32)
+    return np.frombuffer(raw, "<u4",
+                         offset=len(raw) - 4 * len(vec.values)
+                         ).astype(np.uint32)

@@ -61,9 +61,34 @@ SPAN_EDITS = {
          "    _STACK.clear()\n"
          "    _clear_spans()\n"),
     ],
+    # the bulk vectors as packed wire bytes (the helpers end the module)
+    "zkp/proof.py": [
+        ("    proof.encoded_code.values.extend(\n"
+         "        np.asarray(code, np.uint32).reshape(-1).tolist())\n"
+         "    proof.encoded_linear.values.extend(\n"
+         "        np.asarray(linear, np.uint32).reshape(-1).tolist())\n"
+         "    proof.encoded_quadratic.values.extend(\n"
+         "        np.asarray(quad, np.uint32).reshape(-1).tolist())\n"
+         "    proof.sampled_data.values.extend(\n"
+         "        np.asarray(samplings, np.uint32).reshape(-1).tolist())\n",
+         "    _load_packed(proof.encoded_code, code)\n"
+         "    _load_packed(proof.encoded_linear, linear)\n"
+         "    _load_packed(proof.encoded_quadratic, quad)\n"
+         "    _load_packed(proof.sampled_data, samplings)\n"),
+        ("        np.asarray(proof.encoded_code.values, np.uint32),\n"
+         "        np.asarray(proof.encoded_linear.values, np.uint32),\n"
+         "        np.asarray(proof.encoded_quadratic.values, np.uint32),\n"
+         "        leaf_indices, siblings,\n"
+         "        np.asarray(proof.sampled_data.values, np.uint32),\n",
+         "        _read_packed(proof.encoded_code),\n"
+         "        _read_packed(proof.encoded_linear),\n"
+         "        _read_packed(proof.encoded_quadratic),\n"
+         "        leaf_indices, siblings,\n"
+         "        _read_packed(proof.sampled_data),\n"),
+    ],
 }
 # A copied module may end in code of the port's own, below this line.
-PORT_PART = "\n\n# -- The port's spans and counters "
+PORT_PART = "\n\n# -- The port's "
 
 
 @pytest.mark.parametrize("rel", COPIED)
