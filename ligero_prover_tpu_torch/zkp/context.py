@@ -87,9 +87,12 @@ class _ContextBase:
 
 
 def _to_limbs(row: list[int], width: int) -> np.ndarray:
-    arr = np.zeros((width, NLIMB), np.uint32)
-    ints_to_limbs(row, arr[:len(row)])
-    return arr
+    """A row of Python ints (a witness, randomness or mask row) as (width,
+    8) limbs, zero-padded: every such conversion of this module."""
+    with span("ctx.limbs"):
+        arr = np.zeros((width, NLIMB), np.uint32)
+        ints_to_limbs(row, arr[:len(row)])
+        return arr
 
 
 def _pack_quads(bsz: int, tris, pairs):

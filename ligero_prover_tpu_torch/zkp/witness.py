@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 from ..field import bn254 as F
 from .csprng import MpzRandomEngine
+from ..utils.timer import count
 
 
 @dataclass(frozen=True)
@@ -173,6 +174,7 @@ class WitnessManager:
             return
         data_size = len(self.linear_val)
         self.linear_counter += data_size
+        count("witness.elements", data_size)
         self.linear_val.extend([0] * (self.l - data_size))
         self._pad_encoding_random(self.linear_val, self.k - self.l)
         if self.policy.enable_linear_check:
@@ -187,6 +189,7 @@ class WitnessManager:
             return
         data_size = len(self.quadratic_val[0])
         self.quadratic_counter += data_size
+        count("witness.elements", 3 * data_size)
         for i in range(3):
             self.quadratic_val[i].extend([0] * (self.l - data_size))
             self._pad_encoding_random(self.quadratic_val[i], self.k - self.l)

@@ -61,6 +61,18 @@ SPAN_EDITS = {
          "    _STACK.clear()\n"
          "    _clear_spans()\n"),
     ],
+    # the counter of the witness elements each flushed row carries
+    "zkp/witness.py": [
+        ("from .csprng import MpzRandomEngine\n",
+         "from .csprng import MpzRandomEngine\n"
+         "from ..utils.timer import count\n"),
+        ("        self.linear_counter += data_size\n",
+         "        self.linear_counter += data_size\n"
+         '        count("witness.elements", data_size)\n'),
+        ("        self.quadratic_counter += data_size\n",
+         "        self.quadratic_counter += data_size\n"
+         '        count("witness.elements", 3 * data_size)\n'),
+    ],
     # the bulk vectors as packed wire bytes (the helpers end the module)
     "zkp/proof.py": [
         ("    proof.encoded_code.values.extend(\n"
