@@ -229,7 +229,7 @@ class Bn254frModule:
         x = self._load(self._pop_u32())
         out = self._load(self._pop_u32())
         x.is_witness = y.is_witness = out.is_witness = True
-        self._m.constrain_quadratic(out, x, y, self._m.commit_release_witness)
+        self._m.constrain_quadratic(out, x, y)
 
     def bn254fr_assert_mulc(self):
         y = self._load(self._pop_u32())
@@ -502,8 +502,7 @@ class Bn254frModule:
             a_val = self._calc_poly_val(a_addr, i, a_count)
             b_val = self._calc_poly_val(b_addr, i, b_count)
             c_val = self._calc_poly_val(c_addr, i, c_count)
-            self._m.constrain_quadratic(c_val.wit, a_val.wit, b_val.wit,
-                                        self._m.commit_release_witness)
+            self._m.constrain_quadratic(c_val.wit, a_val.wit, b_val.wit)
             del a_val, b_val, c_val
 
     def bn254fr_bigint_convert_to_proper_representation_signed(self):

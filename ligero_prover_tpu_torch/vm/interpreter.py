@@ -491,14 +491,7 @@ class Interpreter:
         sx, sy = r
         x = ctx.make_decomposed(sx, nb)
         y = ctx.make_decomposed(sy, nb)
-        out = []
-        for i in range(nb):
-            if kind == "and":
-                out.append(b.eval(x[i] & y[i]))
-            elif kind == "or":
-                out.append(b.eval(x[i] + y[i] - (x[i] & y[i])))
-            else:
-                out.append(b.bitwise_xor(x[i], y[i]))
+        out = b.bitwise(kind, x.bits, y.bits)
         del x, y
         ctx.push(DecomposedBits(out))
 

@@ -24,7 +24,9 @@ row builder.  ``DecomposedBits`` enforces reverse-order release, matching
 from __future__ import annotations
 
 from ..field import bn254 as F
-from .witness import WitnessManager, LazyWitness
+from .witness import (WitnessManager, LazyWitness,
+                      generate_randoms)
+from ..utils.timer import count
 
 SIGN = "sign"
 UNSIGN = "unsign"
@@ -182,7 +184,7 @@ class EMul(_Expr):
         x = self.a.eval_to_witness(backend)
         y = self.b.eval_to_witness(backend)
         z = m.acquire_witness(F.mulmod(x.val, y.val))
-        m.constrain_quadratic(z, x.wit, y.wit, m.commit_release_witness)
+        m.constrain_quadratic(z, x.wit, y.wit)
         return backend.make_managed(z)
 
     def eval_value(self, backend, rand):
@@ -216,7 +218,7 @@ class EAnd(_Expr):
         y = self.b.eval_to_witness(backend)
         assert x.val in (0, 1) and y.val in (0, 1)
         z = m.acquire_witness(x.val & y.val)
-        m.constrain_quadratic(z, x.wit, y.wit, m.commit_release_witness)
+        m.constrain_quadratic(z, x.wit, y.wit)
         return backend.make_managed(z)
 
     def eval_value(self, backend, rand):
@@ -307,29 +309,46 @@ class Backend:
         del tmp
         return q, r
 
-    def constrain_bit(self, wit: LazyWitness):
-        """b * b = b via two clones (``witness_manager.hpp:429-440``)."""
+    def constrain_bit(self, wit: LazyWitness, r1: int | None = None,
+                      r2: int | None = None):
+        """b * b = b via two clones (``witness_manager.hpp:429-440``): two
+        clones of b, constrained equal to it with the linear randoms r1 and
+        r2 (drawn here if not given), take offsets 0 and 1 of a new slot
+        and are released into it; b takes offset 2."""
         assert wit.value in (0, 1)
-        w1 = self.manager.acquire_witness(wit.value)
-        self.manager.constrain_equal(wit, w1)
-        w2 = self.manager.acquire_witness(wit.value)
-        self.manager.constrain_equal(wit, w2)
-        self.manager.constrain_quadratic(
-            wit, w1, w2, self.manager.commit_release_witness)
-        self.manager.commit_release_witness(w1)
-        self.manager.commit_release_witness(w2)
+        m = self.manager
+        if r1 is None:
+            r1 = m.generate_linear_random()
+            r2 = m.generate_linear_random()
+        slot = m.acquire_slot()
+        m.clone_into(slot, 0, wit, r1)
+        m.clone_into(slot, 1, wit, r2)
+        m.join_or_clone(slot, 2, wit)
 
     def bit_decompose(self, x: Managed, from_bits: int) -> DecomposedBits:
+        """x as `from_bits` checked bits, LSB first: draws r_d, x -= r_d,
+        then per bit i acquires b with b += r_d * 2^i and constrains it
+        (``constrain_bit`` with the next two draws).  The bit's slot
+        commits when its handle is released.  The 1 + 2 * from_bits linear
+        randoms are drawn as one block."""
         m = self.manager
-        decompose_rand = m.generate_linear_random()
-        m.witness_sub_random(x.wit, decompose_rand)
+        n = 1 + 2 * from_bits
+        if m.policy.enable_linear_check:
+            rs = generate_randoms(m.linear_random_engine, n)
+        else:
+            rs = [0] * n
+        rd = rs[0]
+        m.witness_sub_random(x.wit, rd)
+        xv = x.val
+        acquire = m.acquire_witness
+        constrain = self.constrain_bit
+        P = F.MODULUS
         bits = []
         for i in range(from_bits):
-            bit = (x.val >> i) & 1
-            wit = m.acquire_witness(bit)
-            self.constrain_bit(wit)
-            m.witness_add_random(wit, (decompose_rand << i) % F.MODULUS)
-            bits.append(self.make_managed(wit))
+            b = acquire((xv >> i) & 1, (rd << i) % P)
+            constrain(b, rs[2 * i + 1], rs[2 * i + 2])
+            bits.append(Managed(self, b))
+        count("gadget.bits", from_bits)
         return DecomposedBits(bits)
 
     def bit_decompose_constant(self, k: int, from_bits: int) -> DecomposedBits:
@@ -342,16 +361,18 @@ class Backend:
         return DecomposedBits(bits)
 
     def bit_compose(self, bits: DecomposedBits) -> Managed:
+        """The witness s = sum(bit_i * 2^i): draws r, bit_i += r * 2^i,
+        and s -= r (r is 0 where the linear check is off)."""
         m = self.manager
-        s = m.acquire_witness()
-        rand = m.generate_linear_random()
-        m.witness_sub_random(s, rand)
+        P = F.MODULUS
+        r = m.generate_linear_random()
         total = 0
-        for i in range(len(bits)):
-            total += bits[i].val << i
-            m.witness_add_random(bits[i].wit, (rand << i) % F.MODULUS)
-        s.value = total % F.MODULUS if total >= F.MODULUS else total
-        return self.make_managed(s)
+        for i, b in enumerate(bits.bits):
+            w = b.wit
+            total += w.value << i
+            w.random = (w.random + (r << i)) % P
+        count("gadget.bits", len(bits.bits))
+        return Managed(self, m.acquire_witness(total % P, P - r if r else 0))
 
     @staticmethod
     def bit_compose_constant(bits: DecomposedBits) -> int:
@@ -360,11 +381,70 @@ class Backend:
             total += bits[i].val << i
         return total
 
+    def bitwise(self, kind: str, xs: list, ys: list) -> list:
+        """Per-bit `kind` of the bits `xs` and `ys` (Managed, LSB first):
+        "and" is x & y, "or" x + y - (x & y), "xor" x + y - (x & y) * 2,
+        "xnor" ~(x + y - (x & y) * 2).
+
+        Per bit, except for "and": acquires the result w, draws r, w -= r,
+        and adds the top-level randomness to the operands (or, xor: x += r,
+        y += r; xnor: x -= r, y -= r, constant_sum += r).  Then x & y as
+        ``constrain_quadratic`` makes it: acquires z = x & y, and x, y and z
+        join a new slot in turn, an operand already in a slot by a clone
+        that draws its own random.  "and" returns z's handle.  The others
+        give z the product's randomness (or: -r; xor: -2r; xnor: +2r) and
+        release it, which commits the slot if both operands were cloned,
+        before w's handle is made.  With the linear check off every r is 0,
+        so the updates change nothing."""
+        m = self.manager
+        lin = m.policy.enable_linear_check
+        engine = m.linear_random_engine
+        draw = F.generate_random
+        acquire = m.acquire_witness
+        acquire_slot = m.acquire_slot
+        join = m.join_or_clone
+        release = m.commit_release_witness
+        P = F.MODULUS
+        out = []
+        for xm, ym in zip(xs, ys):
+            xw = xm.wit
+            yw = ym.wit
+            xv = xw.value
+            yv = yw.value
+            assert (xv | yv) >> 1 == 0
+            zr = 0
+            if kind == "xnor":
+                r = draw(engine) if lin else 0
+                w = acquire(1 - (xv ^ yv), P - r if r else 0)
+                xw.random = (xw.random - r) % P
+                yw.random = (yw.random - r) % P
+                m.constant_sum = (m.constant_sum + r) % P
+                zr = 2 * r % P
+            elif kind != "and":
+                r = draw(engine) if lin else 0
+                w = acquire(xv | yv if kind == "or" else xv ^ yv,
+                            P - r if r else 0)
+                xw.random = (xw.random + r) % P
+                yw.random = (yw.random + r) % P
+                zr = (-r if kind == "or" else -2 * r) % P
+            z = acquire(xv & yv, zr)
+            slot = acquire_slot()
+            join(slot, 0, xw)
+            join(slot, 1, yw)
+            join(slot, 2, z)
+            if kind == "and":
+                out.append(Managed(self, z))
+            else:
+                release(z)
+                out.append(Managed(self, w))
+        count("gadget.bits", len(out))
+        return out
+
     def bitwise_xor(self, x: Managed, y: Managed) -> Managed:
-        return self.eval(x + y - (x & y) * 2)
+        return self.bitwise("xor", [x], [y])[0]
 
     def bitwise_xnor(self, x: Managed, y: Managed) -> Managed:
-        return self.eval(~(x + y - (x & y) * 2))
+        return self.bitwise("xnor", [x], [y])[0]
 
     def bitwise_eqz(self, x: DecomposedBits) -> Managed:
         eqz = self.eval(~x[0])

@@ -101,3 +101,30 @@ def sha256_digest(*chunks: bytes) -> bytes:
     for c in chunks:
         h.update(c)
     return h.digest()
+
+
+# -- The port's block draws ----------------------------------------------
+
+
+def draw_ints(engine: MpzRandomEngine, num_bytes: int,
+              count: int) -> list[int]:
+    """What `count` calls of ``engine.draw_int(num_bytes)`` return, drawn
+    as one block: the same ints in the same order, and the same refills (a
+    draw that does not fit discards the buffer's tail)."""
+    if num_bytes == 0 or num_bytes % 8 != 0:
+        raise ValueError("num_bytes must be a nonzero multiple of 8")
+    if num_bytes > BUFFER_BYTES:
+        raise ValueError("request exceeds buffer capacity")
+    num_u64 = num_bytes // 8
+    out: list[int] = []
+    while count:
+        if engine._offset_u64 + num_u64 > BUFFER_U64:
+            engine._fill()
+        start = engine._offset_u64 * 8
+        take = min(count, (BUFFER_BYTES - start) // num_bytes)
+        buf = engine._buf
+        out += [int.from_bytes(buf[i:i + num_bytes], "little")
+                for i in range(start, start + take * num_bytes, num_bytes)]
+        engine._offset_u64 += take * num_u64
+        count -= take
+    return out

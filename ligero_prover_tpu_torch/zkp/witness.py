@@ -25,7 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..field import bn254 as F
-from .csprng import MpzRandomEngine
+from .csprng import MpzRandomEngine, draw_ints
 from ..utils.timer import count
 
 
@@ -49,10 +49,6 @@ class QuadraticSlot:
     def __init__(self):
         self.witnesses = [None, None, None]
         self.ready = [False, False, False]
-
-    def mark_ready(self, offset: int) -> bool:
-        self.ready[offset] = True
-        return all(self.ready)
 
 
 class LazyWitness:
@@ -105,16 +101,17 @@ class WitnessManager:
 
     # -- acquisition ------------------------------------------------------
 
-    def acquire_witness(self, value: int = 0) -> LazyWitness:
+    def acquire_witness(self, value: int = 0,
+                        random: int = 0) -> LazyWitness:
         if self._wit_pool:
             w = self._wit_pool.pop()
-            w.random = 0
             w.slot = None
             w.slot_offset = -1
         else:
             w = LazyWitness()
         w.is_witness = True
         w.value = value
+        w.random = random
         self.live_witnesses += 1
         return w
 
@@ -131,9 +128,12 @@ class WitnessManager:
     def commit_release_witness(self, wit: LazyWitness):
         if not wit.is_witness:
             return
-        if wit.slot is not None:
-            if wit.slot.mark_ready(wit.slot_offset):
-                self._commit_quadratic(wit.slot)
+        slot = wit.slot
+        if slot is not None:
+            ready = slot.ready
+            ready[wit.slot_offset] = True
+            if ready[0] and ready[1] and ready[2]:
+                self._commit_quadratic(slot)
             return
         self._commit_linear(wit)
 
@@ -148,16 +148,22 @@ class WitnessManager:
         self._wit_pool.append(wit)
 
     def _commit_quadratic(self, slot: QuadraticSlot):
-        if len(self.quadratic_val[0]) >= self.l:
+        qv = self.quadratic_val
+        if len(qv[0]) >= self.l:
             self.process_reset_quadratic_rows()
-        for i in range(3):
-            ws = slot.witnesses[i]
-            self.quadratic_val[i].append(ws.value)
-            if self.policy.enable_linear_check:
-                self.quadratic_random[i].append(ws.random)
-            self.live_witnesses -= 1
-            ws.is_witness = False
-            self._wit_pool.append(ws)
+            qv = self.quadratic_val
+        a, b, c = slot.witnesses
+        qv[0].append(a.value)
+        qv[1].append(b.value)
+        qv[2].append(c.value)
+        if self.policy.enable_linear_check:
+            qr = self.quadratic_random
+            qr[0].append(a.random)
+            qr[1].append(b.random)
+            qr[2].append(c.random)
+        self.live_witnesses -= 3
+        a.is_witness = b.is_witness = c.is_witness = False
+        self._wit_pool += (a, b, c)
         self._slot_pool.append(slot)
 
     # -- row flushing -----------------------------------------------------
@@ -293,24 +299,46 @@ class WitnessManager:
         self.witness_add_random(c, r)
         self.witness_sub_random(a, F.mulmod(r, k % F.MODULUS))
 
-    def constrain_quadratic(self, c, a, b, release):
+    def constrain_quadratic(self, c, a, b):
         """Bind (a, b, c) into one quadratic slot with a*b = c.
 
         Members already in a slot are cloned (with an equality constraint)
-        first, as ``witness_manager.hpp:477-495``.  `release` is the
-        backend's commit_release callback used for clone bookkeeping.
+        first, as ``witness_manager.hpp:477-495``.
         """
         slot = self.acquire_slot()
-        for i, w in enumerate((a, b, c)):
-            if w.slot is not None:
-                tmp = self.acquire_witness(w.value)
-                self.constrain_equal(w, tmp)
-                tmp.set_slot(slot, i)
-                slot.witnesses[i] = tmp
-                release(tmp)
-            else:
-                w.set_slot(slot, i)
-                slot.witnesses[i] = w
+        self.join_or_clone(slot, 0, a)
+        self.join_or_clone(slot, 1, b)
+        self.join_or_clone(slot, 2, c)
+
+    def join_or_clone(self, slot: QuadraticSlot, offset: int,
+                      w: LazyWitness):
+        """`w` takes `offset` in `slot`, or, if it is in a slot already, a
+        clone of it does (``clone_into``, with a fresh linear random)."""
+        if w.slot is None:
+            w.slot = slot
+            w.slot_offset = offset
+            slot.witnesses[offset] = w
+        elif self.policy.enable_linear_check:
+            self.clone_into(slot, offset, w,
+                            F.generate_random(self.linear_random_engine))
+        else:
+            self.clone_into(slot, offset, w, 0)
+
+    def clone_into(self, slot: QuadraticSlot, offset: int, w: LazyWitness,
+                   r: int):
+        """A clone of `w`, constrained equal to it with the linear random
+        `r` (w += r, clone -= r; `r` is 0 where the linear check is off),
+        takes `offset` in `slot` and is released into it."""
+        P = F.MODULUS
+        w.random = (w.random + r) % P
+        tmp = self.acquire_witness(w.value, P - r if r else 0)
+        tmp.slot = slot
+        tmp.slot_offset = offset
+        slot.witnesses[offset] = tmp
+        ready = slot.ready
+        ready[offset] = True
+        if ready[0] and ready[1] and ready[2]:
+            self._commit_quadratic(slot)
 
     # -- finalize ---------------------------------------------------------
 
@@ -320,3 +348,14 @@ class WitnessManager:
         self.process_masks()
         assert self.live_witnesses == 0, \
             f"{self.live_witnesses} witnesses leaked (not released)"
+
+
+# -- The port's block draws ----------------------------------------------
+
+
+def generate_randoms(engine: MpzRandomEngine, count: int) -> list[int]:
+    """What `count` calls of ``bn254.generate_random(engine)`` return,
+    drawn as one block (``csprng.draw_ints``)."""
+    P = F.MODULUS
+    out = [v >> 2 for v in draw_ints(engine, F.NUM_BYTES, count)]
+    return [v - P if v >= P else v for v in out]

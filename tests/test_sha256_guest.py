@@ -1,6 +1,6 @@
 """The benchmark's SHA-256 guest (``proverbench/guests/sha256.py``) on the
 port's interpreter, its cell's mode against the plain reference, and the
-witness path's counter and span.
+witness path's counters and span.
 
     python -m pytest tests/test_sha256_guest.py -q
 
@@ -160,3 +160,36 @@ def test_batch_rows_take_no_limb_span():
     assert s["spans"]["ctx.limbs"]["count"] == 12         # the masks only
     assert s["counters"].get("witness.elements", 0) == \
         2 * (res.num_linear + 3 * res.num_quadratic)
+
+
+def _gadget_bits(src: str, args: list, private: set) -> int:
+    T.clear_timers()
+    with profile(activities=[ProfilerActivity.CPU]):
+        make_wat_program(src, args, private, strict=True)(NullContext(k=K))
+    bits = T.summary()["counters"].get("gadget.bits", 0)
+    T.clear_timers()
+    return bits
+
+
+def test_gadget_bits_counts_the_secret_bits():
+    message = _message(SMALL["message_bytes"])
+    src = G.make(SMALL, S.sha256(message, SMALL["rounds"]))
+    assert _gadget_bits(src, [message], {0}) > 0
+
+
+def test_gadget_bits_one_opcode():
+    """Two ``i32_private_const`` calls decompose 32 bits each (64), and the
+    secret ``i32.xor`` of the two makes 32 bits (96); the result is
+    dropped, so nothing composes it: 96 in all."""
+    src = """(module
+  (import "env" "i32_private_const" (func $pc (param i32) (result i32)))
+  (func $main (export "_start")
+    (drop (i32.xor (call $pc (i32.const 0x12345678))
+                   (call $pc (i32.const 0x0F0F0F0F))))))
+"""
+    assert _gadget_bits(src, [], set()) == 96
+
+
+def test_gadget_bits_none_in_the_vbn254fr_guest():
+    from bench.e2e_prove import make_wat
+    assert _gadget_bits(make_wat(2), [], set()) == 0
