@@ -8,14 +8,14 @@ source, in parallel) and reports each kernel's registers, spills and SASS
 counts and the rate of the carry chains' wide multiply-adds (a probe
 kernel), checks each kernel against its plain PyTorch version at the shapes
 of the main path and times it (KB per butterfly transform, as its planned
-passes, beside the one-stage-per-launch composition; K1 at the AoS
-butterfly's and the vbn254fr arena's calls, K2, KE mont_scalar and K3 (AoS
-rows, the verifier's 192 columns) also at their small calls, beside the
+passes, beside the one-stage-per-launch composition; K1 at a butterfly
+stage's shape and at the vbn254fr arena's calls, K2, KE mont_scalar and K3
+(AoS rows, the verifier's 192 columns) also at their small calls, beside the
 launch floor of an empty kernel with the same grid; KA (AoS add/sub) at
 the vbn254fr arena's calls (the slot written in place, a host constant by
 value), the older forms (its broadcast-first ``const_sub``, a constant on
 the card) and the verifier's rows, and KF (the ordered fold) fused with
-its products at the verifier's and the AoS check's sums, beside their
+its products at the verifier's sums and a codeword-wide one, beside their
 floors and the K2 + fold pair it replaced, and as the fold of given rows;
 one invmod ladder of
 K1 launches against the plain ladder; KE mont_mul at the check's three
@@ -26,16 +26,15 @@ replaced; KR digitize on
 the engine's AoS rows read in place and on planar limbs, and KE
 mulmod_fma with a full-plane and a per-row second operand, each also on
 non-canonical words), checks that
-small proofs made on the GPU in the planar and the AoS configuration, each
-with the butterfly and with the int8 encode engine, are byte-identical to
-the same proofs made on the CPU (the vbn254fr guest, an ECDSA guest with
-witness rows, and a vbn254fr bit decomposition whose division runs the
-invmod ladder through K1), then drives the configurations through the
-port's ``prove``/``verify`` entry points at production geometry (k=8192,
-n=32768) on the vbn254fr Poseidon-style guest of ``bench/e2e_prove.py``:
-the planar butterfly path at full depth, the AoS path at a reduced depth,
-and the planar path with the int8 engine (``USE_MXU``) at full depth, whose
-proof must equal the butterfly path's byte for byte, and (phase 8) the
+small proofs made on the GPU with the butterfly and with the int8 encode
+engine are byte-identical to the same proofs made on the CPU (the vbn254fr
+guest, an ECDSA guest with witness rows, and a vbn254fr bit decomposition
+whose division runs the invmod ladder through K1), then drives the
+executor through the port's ``prove``/``verify`` entry points at
+production geometry (k=8192, n=32768) on the vbn254fr Poseidon-style guest
+of ``bench/e2e_prove.py``: the butterfly path (phase 5) and the path with
+the int8 engine (``USE_MXU``, phase 7), whose proof must equal the
+butterfly path's byte for byte, both at full depth, and (phase 8) the
 column-sharded prover of ``parallel/mesh.py`` with 4 shards on
 cuda:(i % cards) at full depth, whose proof must equal it too (its coset
 twist is KE mont_mul's tiled mode, checked and timed in phase 3 at the
@@ -67,8 +66,7 @@ import time
 from pathlib import Path
 
 FULL_K = 8192
-FULL_ROUNDS = 400          # the planar main path: 2,412 committed rows
-AOS_ROUNDS = 60            # the AoS path, cut to 372 rows
+FULL_ROUNDS = 400          # the main path: 2,412 committed rows
 SMALL_K = 256
 SEED = 20261016
 ROOT = Path(__file__).resolve().parent
@@ -1899,25 +1897,24 @@ def wat_program(src, args=()):
 
 
 @contextlib.contextmanager
-def configuration(planar, mxu=False):
-    """Select the planar or the AoS path (``ops.ntt.USE_PLANAR``) and the
-    butterfly or the int8 encode engine (``ops.ntt.USE_MXU``) for the
-    executors made inside the block; None is the per-device default."""
+def configuration(mxu=False):
+    """Select the butterfly or the int8 encode engine (``ops.ntt.USE_MXU``)
+    for the executors made inside the block."""
     from ligero_prover_tpu_torch.ops import ntt
-    ntt.USE_PLANAR, ntt.USE_MXU = planar, mxu
+    ntt.USE_MXU = mxu
     try:
         yield
     finally:
-        ntt.USE_PLANAR = ntt.USE_MXU = None
+        ntt.USE_MXU = None
 
 
 def check_small_proofs(device) -> dict:
-    """CUDA planar == CUDA AoS == both with the int8 engine == CPU proof
-    bytes at k=256, for the vbn254fr guest (batch rows only), for a guest
-    with witness rows (linear and quadratic callback rows: the planar
-    check's linear branch and a second encode per flush) and for the
-    vbn254fr bit decomposition, whose vector division runs the invmod
-    ladder through K1 on the planar path.  Returns each program's proof."""
+    """CUDA == CUDA with the int8 engine == CPU proof bytes at k=256, for
+    the vbn254fr guest (batch rows only), for a guest with witness rows
+    (linear and quadratic callback rows: the check's linear branch and a
+    second encode per flush) and for the vbn254fr bit decomposition, whose
+    vector division runs the invmod ladder through K1.  Returns each
+    program's proof."""
     from ligero_prover_tpu_torch.ops import fieldmul as fm
     from ligero_prover_tpu_torch.params import RowGeometry
     from ligero_prover_tpu_torch.prover import prove
@@ -1932,16 +1929,12 @@ def check_small_proofs(device) -> dict:
     try:
         for name, prog in programs.items():
             proofs = {}
-            for label, dev, planar, mxu in (
-                    ("cuda planar", device, True, False),
-                    ("cuda aos", device, False, False),
-                    ("cuda planar+mxu", device, True, True),
-                    ("cuda aos+mxu", device, False, True),
-                    ("cpu", "cpu", None, False)):
-                with configuration(planar, mxu):
+            for label, dev, mxu in (("cuda planar", device, False),
+                                    ("cuda planar+mxu", device, True),
+                                    ("cpu", "cpu", False)):
+                with configuration(mxu):
                     ex = TorchExecutor(geo.k, geo.n, 8, dev)
-                require(ex.use_planar is bool(planar) and ex.use_mxu is mxu,
-                        f"{label} executor")
+                require(ex.use_mxu is mxu, f"{label} executor")
                 k1 = fm.LAUNCHES["mont_mul"]
                 res = prove(prog, geometry=geo, executor=ex,
                             encoding_seed=bytes(range(32)))
@@ -1987,14 +1980,13 @@ def plain_on_cuda() -> dict:
             {**fm.PLAIN_CALLS, **sha.PLAIN_CALLS, **mr.PLAIN_CALLS}.items()}
 
 
-# KA and fused KF: the arena's and the mask step's adds (both paths), the
-# verifier's submods and sums, the AoS check's sums and the AoS codec
+# KA and fused KF: the arena's and the mask step's adds, the verifier's
+# submods and sums
 LIMB_KERNELS = ("addmod_aos", "submod_aos", "masked_mulsum_aos")
 PLANAR_KERNELS = ("butterfly_dit", "butterfly_dif", "addmod_planar",
                   "mont_mul_planar", "quad_acc_planar",
                   "mont_mul_scalar_planar", "sha256_absorb_planar",
                   *LIMB_KERNELS)
-AOS_KERNELS = ("mont_mul", "mulmod", "sha256_absorb")
 MXU_KERNELS = ("digitize", "renorm_mid", "renorm_final")
 
 
@@ -2023,12 +2015,12 @@ def device_kernels(fn) -> tuple[int, float, int]:
         sum(e.count for e in dev if e.key.startswith("Memcpy"))
 
 
-def prove_full(device, phase: str, planar: bool, rounds: int,
-               mxu: bool = False,
+def prove_full(device, phase: str, rounds: int, mxu: bool = False,
                profile: bool = False) -> tuple[dict, bytes]:
-    """Prove and verify make_wat(rounds) at k=8192 in one configuration,
-    counting every kernel's launches from zero (the prove's and the
-    verify's apart); the tamper check runs on the planar paths; with
+    """Prove and verify make_wat(rounds) at k=8192 with the butterfly or
+    the int8 encode engine, counting every kernel's launches from zero
+    (the prove's and the verify's apart), and check that a tampered proof
+    is rejected; with
     `profile`, one more prove and verify each under ``torch.profiler``
     count their device kernels.  Returns the launch counts (prove and
     verify) and the proof."""
@@ -2042,8 +2034,8 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
 
     geo = RowGeometry(FULL_K)
     prog = wat_program(make_wat(rounds))
-    label = ("planar" if planar else "aos") + ("+mxu" if mxu else "")
-    with configuration(planar, mxu):
+    label = "planar" + ("+mxu" if mxu else "")
+    with configuration(mxu):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # what earlier phases left allocated; the prove's own peak is
@@ -2088,20 +2080,17 @@ def prove_full(device, phase: str, planar: bool, rounds: int,
             f"KF {verified.get(fm.FOLD, 0)}")
         require(res.ok, f"{label} prove self-check")
         require(vres.ok, f"port verifier accepts the {label} proof")
-        path = (PLANAR_KERNELS if planar else AOS_KERNELS + LIMB_KERNELS) \
-            + (MXU_KERNELS if mxu else ())
+        path = PLANAR_KERNELS + (MXU_KERNELS if mxu else ())
         require(all(launches[k] > 0 for k in path),
                 f"every kernel of the {label} path launched: {launches}")
         require(all(v == 0 for v in plain.values()),
                 f"no plain version ran on CUDA tensors: {plain}")
-        require(not planar or launches[fm.QUAD] == 0,
-                f"the planar check takes KQ, not quad-terms: {launches}")
-        if planar:
-            bad = verify(prog, tamper(res.proof), geometry=geo,
-                         device=device)
-            log(f"{phase}: one-bit tamper of sampled_data rejected: "
-                f"{not bad.ok}")
-            require(not bad.ok, "tampered proof rejected")
+        require(launches[fm.QUAD] == 0,
+                f"the check takes KQ, not quad-terms: {launches}")
+        bad = verify(prog, tamper(res.proof), geometry=geo, device=device)
+        log(f"{phase}: one-bit tamper of sampled_data rejected: "
+            f"{not bad.ok}")
+        require(not bad.ok, "tampered proof rejected")
         if profile:
             rows = res.num_rows
             kp, tp, mp = device_kernels(lambda: prove(
@@ -2129,7 +2118,7 @@ def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
     from ligero_prover_tpu_torch.ops import mxu_ntt as mx
     from ligero_prover_tpu_torch.ops.ntt import LARGEST_PASS, RSCodec, \
         pass_plan
-    launches, proof = prove_full(device, "phase 7", True, FULL_ROUNDS, True)
+    launches, proof = prove_full(device, "phase 7", FULL_ROUNDS, True)
     # KB launches of one k-width butterfly encode: the passes of log2(k)
     # DIF stages, and of log2(n) DIT stages less the two the
     # zero-extension skips
@@ -2161,7 +2150,7 @@ def prove_mxu(device, butterfly: dict, butterfly_proof: bytes) -> dict:
 
 SHARDS = 4
 # the sharded phases prove and do not verify: no submod (make_wat has
-# none) and no fold (the verifier's and the AoS check's)
+# none) and no fold (the verifier's)
 SHARDED_KERNELS = tuple(k for k in PLANAR_KERNELS
                         if k not in ("submod_aos", "masked_mulsum_aos")) \
     + ("mont_mul_tiled_planar", "mulmod")
@@ -2197,37 +2186,36 @@ def prove_sharded(device, proof: bytes, bit_decompose: bytes) -> dict:
     geo = RowGeometry(FULL_K)
     prog = wat_program(make_wat(FULL_ROUNDS))
     small = wat_program(str(BIT_DECOMPOSE))
-    with configuration(True):
-        for dev in devices:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        # what earlier phases left allocated (caches, tables); the
-        # prove's own peak is counted above it
-        before = {str(dev): torch.cuda.memory_allocated(dev)
-                  for dev in devices}
-        T.clear_timers()
-        for module in (fm, sha, mr):
-            module.reset_counts()
-        t0 = time.perf_counter()
-        res = prove(prog, geometry=geo, encoding_seed=bytes(32), mesh=mesh)
-        for dev in devices:
-            torch.cuda.synchronize(dev)
-        prove_s = time.perf_counter() - t0
-        stages = {s: round(T.get_timer(s), 3)
-                  for s in ("stage1", "stage2", "stage3")}
-        peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
-                 - before[str(dev)] for dev in devices}
-        launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
-        tiled_shapes = dict(fm.TILED_SHAPES)
-        plain = plain_on_cuda()
-        for module in (fm, sha, mr):
-            module.reset_counts()
-        small_res = prove(small, geometry=RowGeometry(SMALL_K), mesh=mesh,
-                          batch_rows=8, encoding_seed=bytes(range(32)))
-        for dev in devices:
-            torch.cuda.synchronize(dev)
-        small_launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
-        small_plain = plain_on_cuda()
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    # what earlier phases left allocated (caches, tables); the
+    # prove's own peak is counted above it
+    before = {str(dev): torch.cuda.memory_allocated(dev)
+              for dev in devices}
+    T.clear_timers()
+    for module in (fm, sha, mr):
+        module.reset_counts()
+    t0 = time.perf_counter()
+    res = prove(prog, geometry=geo, encoding_seed=bytes(32), mesh=mesh)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    prove_s = time.perf_counter() - t0
+    stages = {s: round(T.get_timer(s), 3)
+              for s in ("stage1", "stage2", "stage3")}
+    peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
+             - before[str(dev)] for dev in devices}
+    launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+    tiled_shapes = dict(fm.TILED_SHAPES)
+    plain = plain_on_cuda()
+    for module in (fm, sha, mr):
+        module.reset_counts()
+    small_res = prove(small, geometry=RowGeometry(SMALL_K), mesh=mesh,
+                      batch_rows=8, encoding_seed=bytes(range(32)))
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    small_launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+    small_plain = plain_on_cuda()
     log(f"phase 8: sharded k={FULL_K} n={geo.n} make_wat({FULL_ROUNDS}): "
         f"rows={res.num_rows} prove_s={prove_s:.3f} "
         f"rows_per_s={res.num_rows / prove_s:.1f} stages_s={stages} "
@@ -2301,37 +2289,36 @@ def mp_rank(cfg: dict) -> int:
     try:
         kernels.lib()               # the parent's build, loaded
         mesh = make_mesh(devices)
-        with configuration(True):
-            warm = prove(wat_program(make_wat(4)),
-                         geometry=RowGeometry(SMALL_K), mesh=mesh,
-                         batch_rows=8, encoding_seed=bytes(32))
-            require(warm.ok, "phase 9 start-up prove")
-            prog = wat_program(make_wat(FULL_ROUNDS))
-            uniq = sorted(set(devices), key=str)
-            for dev in uniq:
-                torch.cuda.synchronize(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-            before = {str(dev): torch.cuda.memory_allocated(dev)
-                      for dev in uniq}
-            T.clear_timers()
-            mesh.reset_counts()
-            for module in (fm, sha, mr):
-                module.reset_counts()
-            t0 = time.perf_counter()
-            res = prove(prog, geometry=RowGeometry(FULL_K),
-                        encoding_seed=bytes(32), mesh=mesh)
-            for dev in uniq:
-                torch.cuda.synchronize(dev)
-            prove_s = time.perf_counter() - t0
-            launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
-            tiled_shapes = {f"{b}x{w}": c
-                            for (b, w), c in fm.TILED_SHAPES.items()}
-            plain = plain_on_cuda()
-            collectives = dict(mesh.counts)
-            peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
-                     - before[str(dev)] for dev in uniq}
-            stages = {s: round(T.get_timer(s), 3)
-                      for s in ("stage1", "stage2", "stage3")}
+        warm = prove(wat_program(make_wat(4)),
+                     geometry=RowGeometry(SMALL_K), mesh=mesh,
+                     batch_rows=8, encoding_seed=bytes(32))
+        require(warm.ok, "phase 9 start-up prove")
+        prog = wat_program(make_wat(FULL_ROUNDS))
+        uniq = sorted(set(devices), key=str)
+        for dev in uniq:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = {str(dev): torch.cuda.memory_allocated(dev)
+                  for dev in uniq}
+        T.clear_timers()
+        mesh.reset_counts()
+        for module in (fm, sha, mr):
+            module.reset_counts()
+        t0 = time.perf_counter()
+        res = prove(prog, geometry=RowGeometry(FULL_K),
+                    encoding_seed=bytes(32), mesh=mesh)
+        for dev in uniq:
+            torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - t0
+        launches = {**fm.LAUNCHES, **sha.LAUNCHES, **mr.LAUNCHES}
+        tiled_shapes = {f"{b}x{w}": c
+                        for (b, w), c in fm.TILED_SHAPES.items()}
+        plain = plain_on_cuda()
+        collectives = dict(mesh.counts)
+        peaks = {str(dev): torch.cuda.max_memory_allocated(dev)
+                 - before[str(dev)] for dev in uniq}
+        stages = {s: round(T.get_timer(s), 3)
+                  for s in ("stage1", "stage2", "stage3")}
     finally:
         dist.destroy_process_group()
     imported = [m for m in sys.modules if m.split(".")[0]
@@ -2471,13 +2458,10 @@ def main() -> int:
     measured = check_kernels(device)
     small = check_small_proofs(device)
     os.environ["LIGERO_PROOF_TIMESTAMP"] = "1700000000"
-    launches, proof = prove_full(device, "phase 5", True, FULL_ROUNDS,
-                                 profile=True)
-    aos, _ = prove_full(device, "phase 6", False, AOS_ROUNDS)
+    launches, proof = prove_full(device, "phase 5", FULL_ROUNDS, profile=True)
     mxu = prove_mxu(device, launches, proof)
     sharded = prove_sharded(device, proof, small["bit_decompose"])
     ranks = prove_multiprocess(proof)
-    launches.update({k: aos[k] for k in AOS_KERNELS})
     launches.update({k: mxu[k] for k in MXU_KERNELS})
     launches[fm.TILED] = sharded[fm.TILED]
 

@@ -19,8 +19,8 @@ from .parallel.mesh import ColumnShards, Mesh, shard
 
 def domain_tables_from_numpy(dom: dict, device=None) -> dict:
     """A ``build_domain_tables`` dict of the JAX package -> the port's
-    constant-geometry tables (``rev``, ``cg_fwd``, ``cg_inv``, their
-    (log2 n, 8, n/2) planar forms ``cg_fwd_pl``/``cg_inv_pl`` as the
+    constant-geometry tables (``rev``, the (log2 n, 8, n/2) planar forms
+    ``cg_fwd_pl``/``cg_inv_pl`` of ``cg_fwd``/``cg_inv`` as the
     reference's planar scans read them (``tw.T`` per stage), and
     ``n_inv_mont``)."""
     planar = {f"{key}_pl": to_torch(np.ascontiguousarray(
@@ -29,8 +29,6 @@ def domain_tables_from_numpy(dom: dict, device=None) -> dict:
     return planar | {
         "rev": torch.from_numpy(
             np.asarray(dom["rev"]).astype(np.int64)).to(device),
-        "cg_fwd": to_torch(np.asarray(dom["cg_fwd"]), device),
-        "cg_inv": to_torch(np.asarray(dom["cg_inv"]), device),
         "n_inv_mont": to_torch(np.asarray(dom["n_inv_mont"]), device),
     }
 

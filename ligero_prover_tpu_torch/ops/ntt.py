@@ -1,10 +1,10 @@
 """Batched constant-geometry NTT / Reed-Solomon codec over BN254-Fr.
 
-Port of the constant-geometry paths of ``ligero_prover_tpu.ops.ntt``: the
-AoS one (``encode_rows_cg`` / ``decode_rows_cg``, ``ntt.py:270-325``) and
-the planar one (``encode_rows_cg_planar_core``, ``encode_rows_cg_planar``,
-``decode_rows_cg_planar``, ``ntt.py:328-407``).  Every stage has the same
-shape, so a stage is a plain Python loop iteration:
+Port of the planar constant-geometry path of ``ligero_prover_tpu.ops.ntt``
+(``encode_rows_cg_planar_core``, ``encode_rows_cg_planar``,
+``decode_rows_cg_planar``, ``ntt.py:328-407``), whose results equal the
+reference's AoS path (``encode_rows_cg`` / ``decode_rows_cg``,
+``ntt.py:270-325``) limb for limb.  Every stage has the same shape:
 
   DIT stage t:  a = x[0::2]; b = x[1::2]; wb = tw*b
                 x = [a + wb ; a - wb]            (halves)
@@ -17,30 +17,27 @@ which the first log2(n/k) DIT stages are identities and are skipped.
 Twiddles are in Montgomery form, so each butterfly does one Montgomery
 product and values stay in the plain domain.
 
-The AoS path holds rows as (B, N, 8) and runs a stage as K1 (``mont_mul``)
-plus the plain limb ``addmod``/``submod``.  The planar path holds them as
-(8, B, N) limb planes and runs a transform as a few passes
-(:func:`pass_plan`), each one launch of KB
+Rows are held as (8, B, N) limb planes, and a transform runs as a few
+passes (:func:`pass_plan`), each one launch of KB
 (``fieldmul.butterfly_dit_pass``/``butterfly_dif_pass``) that takes up to
 `max_pass` consecutive stages through shared memory, into ping-pong
 buffers allocated once per scan; the zero-extension tile is read in place
-by the first DIT pass.  ``max_pass=1`` is the one-stage-per-launch path.  :data:`USE_PLANAR` selects the path: None (auto) means
-planar for CUDA tensors and AoS for CPU tensors, the reference's "planar
-off the CPU" rule (``ntt.py:174-182``) applied per device.
+by the first DIT pass.  ``max_pass=1`` is the one-stage-per-launch path.
+On CPU tensors every kernel runs its plain torch version.
 
-A third engine serves the k-width encode of commit, check and open: the
+A second engine serves the k-width encode of commit, check and open: the
 int8 four-step encode of ``ops/mxu_ntt.py`` (three int8 matrix products and
 the KR renormalisation kernels), selected by :data:`USE_MXU` and fed by
 :attr:`RSCodec.mxu_tabs`; the reference's ``USE_MXU`` (``ntt.py:181-189,
-484-501``).  2k mask rows, decode and the verifier stay on the butterfly
-paths.
+484-501``).  2k mask rows, decode and the verifier stay on the
+butterflies.
 
 The column-sharded executor (``parallel/mesh.py``) encodes with the coset
 functions: shard d of D owns the codeword columns j = d + D*t (t < m =
 n/D), which are the evaluations of the row's polynomial on a coset of the
 subgroup of order m, so each shard computes its own columns with no
-exchange (:func:`encode_rows_coset_planar_core`,
-:func:`encode_rows_coset`, tables from :func:`coset_tables`).
+exchange (:func:`encode_rows_coset_planar_core`, tables from
+:func:`coset_tables`).
 
 Mathematical contract:
   encode    = NTT_n(zero_extend(iNTT_k(row)))
@@ -66,16 +63,6 @@ from . import fieldmul as fm
 from . import fieldops as fo
 
 NLIMB = 8
-
-USE_PLANAR: bool | None = None   # None = auto: planar off the CPU
-
-
-def _planar_use(device) -> bool:
-    """Whether tensors on `device` take the planar path."""
-    if USE_PLANAR is not None:
-        return USE_PLANAR
-    return torch.device(device).type != "cpu"
-
 
 USE_MXU: bool | None = None      # None = auto, see MXU_ON_CUDA
 # What None means for CUDA tensors.  Off: on the card the int8 engine has
@@ -111,11 +98,11 @@ def _bitrev(n: int) -> np.ndarray:
 
 def build_domain_tables(n: int, w: int, device=None) -> dict:
     """Constant-geometry twiddles of one domain as tensors on `device`:
-    ``cg_fwd``/``cg_inv`` are (log2 n, n/2, 8) int32 in Montgomery form
-    (stage t uses root^((j >> s) << s) with s = log2n-1-t), and
-    ``cg_fwd_pl``/``cg_inv_pl`` the same as contiguous (log2 n, 8, n/2)
-    limb planes; ``rev`` the bit-reversal permutation, ``n_inv_mont`` 1/n
-    in Montgomery form."""
+    ``cg_fwd_pl``/``cg_inv_pl`` are contiguous (log2 n, 8, n/2) int32 limb
+    planes in Montgomery form (stage t uses root^((j >> s) << s) with
+    s = log2n-1-t), uploaded as (log2 n, n/2, 8) rows and turned into
+    planes on the device; ``rev`` the bit-reversal permutation,
+    ``n_inv_mont`` 1/n in Montgomery form."""
     assert pow(w, n, F.MODULUS) == 1 and pow(w, n // 2, F.MODULUS) != 1
     log2n = n.bit_length() - 1
     w_inv = pow(w, F.MODULUS - 2, F.MODULUS)
@@ -138,68 +125,11 @@ def build_domain_tables(n: int, w: int, device=None) -> dict:
     cg_fwd, cg_inv = cg_tws(w), cg_tws(w_inv)
     return {
         "rev": fo.upload(torch.from_numpy(_bitrev(n)), device),
-        "cg_fwd": cg_fwd,
-        "cg_inv": cg_inv,
         "cg_fwd_pl": cg_fwd.transpose(1, 2).contiguous(),
         "cg_inv_pl": cg_inv.transpose(1, 2).contiguous(),
         "n_inv_mont": fo.to_torch(int_to_limbs(n_inv * F.R % F.MODULUS),
                                   device),
     }
-
-
-def _cg_dit_scan(x, tws, first_stage: int = 0):
-    """x (B, N, 8) bit-reversed -> natural; tws (log2N, N/2, 8)."""
-    b_, n = x.shape[0], x.shape[1]
-    h = n // 2
-    for t in range(first_stage, tws.shape[0]):
-        v = x.reshape(b_, h, 2, NLIMB)
-        a, b = v[:, :, 0], v[:, :, 1]
-        wb = fo.mont_mul(b, tws[t])
-        x = torch.cat([fo.addmod(a, wb), fo.submod(a, wb)], dim=1)
-    return x
-
-
-def _cg_dif_scan(x, tws):
-    """x (B, N, 8) natural -> bit-reversed; consumes tws back-to-front."""
-    b_, n = x.shape[0], x.shape[1]
-    h = n // 2
-    for t in range(tws.shape[0] - 1, -1, -1):
-        a, b = x[:, :h], x[:, h:]
-        s = fo.addmod(a, b)
-        d = fo.mont_mul(fo.submod(a, b), tws[t])
-        x = torch.stack([s, d], dim=2).reshape(b_, n, NLIMB)
-    return x
-
-
-def encode_rows_cg(rows, dom_msg, dom_n, n: int):
-    """(B, w, 8) message-domain rows -> (B, n, 8) codewords: iNTT_w (DIF),
-    scale by 1/w, zero-extend (tile), NTT_n (DIT)."""
-    w = rows.shape[1]
-    x = _cg_dif_scan(rows, dom_msg["cg_inv"])
-    x = fo.mont_mul(x, dom_msg["n_inv_mont"])
-    ratio = n // w
-    x = x.repeat(1, ratio, 1)
-    return _cg_dit_scan(x, dom_n["cg_fwd"],
-                        first_stage=ratio.bit_length() - 1)
-
-
-def decode_rows_cg(codewords, dom_k, dom_n, k: int):
-    """(B, n, 8) -> (B, n, 8): [0,k) k-domain evaluations, [k,n) raw
-    coefficients (degree check).
-
-    In the bit-reversed n-domain, natural coefficients {c, c+k, c+2k, c+3k}
-    (c < k, n = 4k) sit at consecutive positions {4t, 4t+2, 4t+1, 4t+3}
-    with t = bitrev_k(c), so the fold c[i] += c[i+k] is an add of lanes 0
-    and 2 that lands in bit-reversed k-order, ready for the DIT k-NTT."""
-    b_, n = codewords.shape[0], codewords.shape[1]
-    assert n == 4 * k
-    coeffs = _cg_dif_scan(codewords, dom_n["cg_inv"])
-    coeffs = fo.mont_mul(coeffs, dom_n["n_inv_mont"])
-    v = coeffs.reshape(b_, k, 4, NLIMB)
-    folded = fo.addmod(v[:, :, 0], v[:, :, 2])
-    evals = _cg_dit_scan(folded, dom_k["cg_fwd"])
-    coeffs_nat = coeffs.index_select(1, dom_n["rev"])
-    return torch.cat([evals, coeffs_nat[:, k:]], dim=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,8 +157,8 @@ def pass_plan(log2n: int, first_stage: int, count: int,
 
 def _cg_dit_scan_planar(x, tws_pl, first_stage: int = 0,
                         max_pass: int = LARGEST_PASS):
-    """Planar twin of :func:`_cg_dit_scan`: x (8, B, w) bit-reversed ->
-    (8, B, N) natural with N = 2 * tws_pl.shape[2], tws_pl
+    """DIT scan: x (8, B, w) bit-reversed -> (8, B, N) natural with
+    N = 2 * tws_pl.shape[2], tws_pl
     (log2N, 8, N/2), by the passes of :func:`pass_plan`.  A narrower x
     (w < N) is the head of its own tile: the first pass reads it tiled, so
     the skipped identity stages (before `first_stage`) and the tile cost
@@ -244,8 +174,8 @@ def _cg_dit_scan_planar(x, tws_pl, first_stage: int = 0,
 
 
 def _cg_dif_scan_planar(x, tws_pl, max_pass: int = LARGEST_PASS):
-    """Planar twin of :func:`_cg_dif_scan`: x (8, B, N) natural ->
-    bit-reversed; consumes tws_pl back to front, by the passes of
+    """DIF scan: x (8, B, N) natural -> bit-reversed; consumes tws_pl
+    back to front, by the passes of
     :func:`pass_plan` in reverse."""
     log2n = tws_pl.shape[0]
     plan = pass_plan(log2n, 0, log2n, max_pass)
@@ -285,9 +215,15 @@ def encode_rows_cg_planar(rows, dom_msg, dom_n, n: int):
 
 def decode_rows_cg_planar(codewords, dom_k, dom_n, k: int,
                           max_pass: int = LARGEST_PASS):
-    """Planar decode; same contract as :func:`decode_rows_cg`.  The fold's
-    lanes 0 and 2 are strided views of the coefficients, made contiguous
-    for KE."""
+    """(B, n, 8) -> (B, n, 8): [0,k) k-domain evaluations, [k,n) raw
+    coefficients (degree check).
+
+    In the bit-reversed n-domain, natural coefficients {c, c+k, c+2k, c+3k}
+    (c < k, n = 4k) sit at consecutive positions {4t, 4t+2, 4t+1, 4t+3}
+    with t = bitrev_k(c), so the fold c[i] += c[i+k] is an add of lanes 0
+    and 2 that lands in bit-reversed k-order, ready for the DIT k-NTT.
+    The lanes are strided views of the coefficients, made contiguous for
+    KE."""
     b_, n = codewords.shape[0], codewords.shape[1]
     assert n == 4 * k
     x = _cg_dif_scan_planar(codewords.movedim(-1, 0).contiguous(),
@@ -298,26 +234,6 @@ def decode_rows_cg_planar(codewords, dom_k, dom_n, k: int,
     evals = _cg_dit_scan_planar(folded, dom_k["cg_fwd_pl"], 0, max_pass)
     coeffs_nat = x.movedim(0, -1).index_select(1, dom_n["rev"])
     return torch.cat([evals.movedim(0, -1), coeffs_nat[:, k:]], dim=1)
-
-
-def encode_rows(rows, dom_msg, dom_n, n: int, use_planar: bool | None = None):
-    """(B, w, 8) -> (B, n, 8) by the planar or the AoS path (None: by
-    :func:`_planar_use` for the rows' device)."""
-    if use_planar is None:
-        use_planar = _planar_use(rows.device)
-    if use_planar:
-        return encode_rows_cg_planar(rows, dom_msg, dom_n, n)
-    return encode_rows_cg(rows, dom_msg, dom_n, n)
-
-
-def decode_rows(codewords, dom_k, dom_n, k: int,
-                use_planar: bool | None = None):
-    """Dispatcher of the decode, as :func:`encode_rows`."""
-    if use_planar is None:
-        use_planar = _planar_use(codewords.device)
-    if use_planar:
-        return decode_rows_cg_planar(codewords, dom_k, dom_n, k)
-    return decode_rows_cg(codewords, dom_k, dom_n, k)
 
 
 class RSCodec:
@@ -352,13 +268,14 @@ class RSCodec:
         return self._mxu_tabs
 
     def encode(self, rows):
-        return encode_rows(rows, self.dom_k, self.dom_n, self.n)
+        return encode_rows_cg_planar(rows, self.dom_k, self.dom_n, self.n)
 
     def encode_2k(self, rows):
-        return encode_rows(rows, self.dom_2k, self.dom_n, self.n)
+        return encode_rows_cg_planar(rows, self.dom_2k, self.dom_n, self.n)
 
     def decode(self, codewords):
-        return decode_rows(codewords, self.dom_k, self.dom_n, self.k)
+        return decode_rows_cg_planar(codewords, self.dom_k, self.dom_n,
+                                     self.k)
 
 
 # ---- coset encode: one shard's columns of the codeword -------------------
@@ -380,7 +297,7 @@ def coset_tables(k: int, n: int, D: int, d: int, device=None) -> dict:
     * ``twist``: per width w, the (8, w) limb planes at position pos of
       w^-1 * w_n^(d * bitrev_w(pos)) in Montgomery form, which scale the
       bit-reversed coefficients of iNTT_w by 1/w and twist them onto the
-      coset in one product; ``twist_aos`` the same as (w, 8)."""
+      coset in one product."""
     device = torch.device(device if device is not None else "cpu")
     key = (k, n, D, d, str(device))
     if key in _COSET_TABLES:
@@ -395,7 +312,7 @@ def coset_tables(k: int, n: int, D: int, d: int, device=None) -> dict:
         _COSET_DOMAINS[dom_key] = build_domain_tables(m, pow(w_n, D, p),
                                                       device)
     step = pow(w_n, d, p)
-    twist, twist_aos = {}, {}
+    twist = {}
     for w in (k, 2 * k):
         acc = pow(w, p - 2, p) * F.R % p
         powers = [0] * w
@@ -403,22 +320,19 @@ def coset_tables(k: int, n: int, D: int, d: int, device=None) -> dict:
             powers[i] = acc
             acc = acc * step % p
         limbs = ints_to_limbs(powers)[_bitrev(w)]
-        twist_aos[w] = fo.to_torch(np.ascontiguousarray(limbs), device)
-        twist[w] = twist_aos[w].T.contiguous()
-    tabs = {"m": m, "dom": _COSET_DOMAINS[dom_key], "twist": twist,
-            "twist_aos": twist_aos}
+        twist[w] = fo.to_torch(np.ascontiguousarray(limbs), device) \
+            .T.contiguous()
+    tabs = {"m": m, "dom": _COSET_DOMAINS[dom_key], "twist": twist}
     _COSET_TABLES[key] = tabs
     return tabs
 
 
-def coset_coeffs(rows, dom_msg, use_planar: bool):
+def coset_coeffs(rows, dom_msg):
     """iNTT_w of (B, w, 8) rows by DIF, not scaled: the bit-reversed
     coefficients (times w) that every shard's coset encode takes, as
-    (8, B, w) limb planes (planar) or (B, w, 8) (AoS)."""
-    if use_planar:
-        return _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
-                                   dom_msg["cg_inv_pl"])
-    return _cg_dif_scan(rows, dom_msg["cg_inv"])
+    (8, B, w) limb planes."""
+    return _cg_dif_scan_planar(rows.movedim(-1, 0).contiguous(),
+                               dom_msg["cg_inv_pl"])
 
 
 def _first_stage(m: int, w: int) -> int:
@@ -448,20 +362,3 @@ def encode_rows_coset_planar_core(coeffs, tabs: dict,
         x = v.reshape(NLIMB, x.shape[1], m)
     return _cg_dit_scan_planar(x, tabs["dom"]["cg_fwd_pl"],
                                _first_stage(m, w), max_pass)
-
-
-def encode_rows_coset(coeffs, tabs: dict):
-    """AoS twin of :func:`encode_rows_coset_planar_core`: coeffs
-    (B, w, 8) -> (B, m, 8)."""
-    b_, w = coeffs.shape[0], coeffs.shape[1]
-    m = tabs["m"]
-    x = fo.mont_mul(coeffs, tabs["twist_aos"][w])
-    if m < w:
-        v = x.reshape(b_, m, w // m, NLIMB)
-        while v.shape[2] > 1:
-            h = v.shape[2] // 2
-            v = fo.addmod(v[:, :, :h], v[:, :, h:])
-        x = v.reshape(b_, m, NLIMB)
-    elif m > w:
-        x = x.repeat(1, m // w, 1)
-    return _cg_dit_scan(x, tabs["dom"]["cg_fwd"], _first_stage(m, w))

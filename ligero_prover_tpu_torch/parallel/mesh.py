@@ -45,10 +45,9 @@ import torch.distributed as dist
 
 from ..ops import fieldops as fo
 from ..ops import sha256 as tsha
-from ..ops.ntt import coset_coeffs, coset_tables, encode_rows_coset, \
+from ..ops.ntt import coset_coeffs, coset_tables, \
     encode_rows_coset_planar_core
-from ..zkp.executor import TorchExecutor, _check_terms_aos, \
-    _check_terms_planar
+from ..zkp.executor import TorchExecutor, _check_terms_planar
 
 
 def _sync(device: torch.device):
@@ -256,19 +255,12 @@ class ShardedExecutor(TorchExecutor):
         """The rows' iNTT coefficients, computed once on the home device
         and copied to every device of this process's shards."""
         dom = self.codec.dom_2k if width_2k else self.codec.dom_k
-        return self._spread(coset_coeffs(self._limbs(rows), dom,
-                                         self.use_planar))
+        return self._spread(coset_coeffs(self._limbs(rows), dom))
 
     def _encode(self, coeffs: dict, i: int) -> torch.Tensor:
-        """Local shard i's columns of the encoded rows: (8, B, m) planes,
-        or (B, m, 8) on the AoS path."""
-        c = coeffs[self.mesh.devices[i]]
-        if self.use_planar:
-            return encode_rows_coset_planar_core(c, self.shards[i])
-        return encode_rows_coset(c, self.shards[i])
-
-    def _aos(self, cw: torch.Tensor) -> torch.Tensor:
-        return cw.movedim(0, -1).contiguous() if self.use_planar else cw
+        """Local shard i's columns of the encoded rows: (8, B, m) planes."""
+        return encode_rows_coset_planar_core(coeffs[self.mesh.devices[i]],
+                                             self.shards[i])
 
     # ---- stage 1: commit -------------------------------------------------
 
@@ -286,10 +278,9 @@ class ShardedExecutor(TorchExecutor):
             return super().commit_step(sha, rows, valid_count,
                                        width_2k=width_2k)
         coeffs = self._coeffs(rows, width_2k)
-        absorb = tsha.absorb_stream_planar if self.use_planar \
-            else tsha.absorb_stream
-        out = [absorb(st, pe, has_pending, self._encode(coeffs, i),
-                      int(valid_count))
+        out = [tsha.absorb_stream_planar(st, pe, has_pending,
+                                         self._encode(coeffs, i),
+                                         int(valid_count))
                for i, (st, pe) in enumerate(zip(state.parts, pending.parts))]
         return (self._shards([o[0] for o in out], 1),
                 self._shards([o[1] for o in out], 0), out[0][2])
@@ -308,23 +299,12 @@ class ShardedExecutor(TorchExecutor):
         e = self._coeffs(rows)
         r = None if rands_zero else self._coeffs(rands)
         code_rs = self._spread(self._limbs(code_rs))
-        if not self.use_planar:
-            tri_r, pair_r = (self._spread(self._limbs(a))
-                             for a in (tri_r, pair_r))
-        out = []
-        for i, dev in enumerate(self.mesh.devices):
-            if self.use_planar:    # KQ checks and uploads host arrays
-                terms, tri, pair = _check_terms_planar, tri_idx, pair_idx
-                tr, pr = tri_r, pair_r
-            else:
-                terms = _check_terms_aos
-                tri, pair = (self._index(a).to(dev)
-                             for a in (tri_idx, pair_idx))
-                tr, pr = tri_r[dev], pair_r[dev]
-            out.append(terms(
-                *(a.parts[i] for a in accs), self._encode(e, i),
-                None if r is None else self._encode(r, i), code_rs[dev],
-                tri, tr, pair, pr))
+        # KQ checks the quadratic test's host arrays and uploads them
+        out = [_check_terms_planar(
+            *(a.parts[i] for a in accs), self._encode(e, i),
+            None if r is None else self._encode(r, i), code_rs[dev],
+            tri_idx, tri_r, pair_idx, pair_r)
+            for i, dev in enumerate(self.mesh.devices)]
         return tuple(self._shards([o[j] for o in out], 0) for j in range(3))
 
     def mask_step(self, accs, code_row, linear_row, quad_row):
@@ -335,8 +315,8 @@ class ShardedExecutor(TorchExecutor):
                              width_2k=True)
         out = []
         for i in range(len(self.mesh.devices)):
-            cw = self._aos(self._encode(code, i))[0]
-            mw = self._aos(self._encode(masks, i))
+            cw = self._encode(code, i).movedim(0, -1).contiguous()[0]
+            mw = self._encode(masks, i).movedim(0, -1).contiguous()
             out.append((fo.addmod(accs[0].parts[i], cw),
                         fo.addmod(accs[1].parts[i], mw[0]),
                         fo.addmod(accs[2].parts[i], mw[1])))
@@ -362,9 +342,8 @@ class ShardedExecutor(TorchExecutor):
             if not len(pos):
                 continue
             local = torch.from_numpy(idx[pos] // D).to(dev)
-            cw = self._encode(coeffs, i)
-            cols = cw.index_select(2, local).movedim(0, -1) \
-                if self.use_planar else cw.index_select(1, local)
+            cols = self._encode(coeffs, i).index_select(2, local) \
+                .movedim(0, -1)
             out.index_copy_(1, torch.from_numpy(pos).to(self.device),
                             cols.to(self.device))
         if self.mesh.world == 1:

@@ -3,7 +3,8 @@
 The witnessed computation is abstracted as ``program(ctx)`` — a callable
 that executes against a stage context's backend (the WASM interpreter for
 real programs, or any constraint-building callable for tests).  It is run
-three times, exactly like the reference:
+twice; the reference runs it a third time for stage 3, whose rows here
+are a replay of stage 1's (:class:`RowTape`):
 
   stage 1: commit   — encode every flushed row, Merkle-commit the columns
   stage 2: checks   — accumulate code/linear/quadratic test codewords
@@ -18,7 +19,7 @@ column-sharded :class:`ShardedExecutor` over a mesh of devices.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -32,8 +33,7 @@ from .zkp.csprng import HashRandomEngine
 from .zkp.sampling import portable_sample
 from .zkp.merkle import MerkleTree
 from .zkp.executor import TorchExecutor
-from .zkp.context import Stage1Context, Stage2Context, Stage3Context, \
-    RowTape
+from .zkp.context import Stage1Context, Stage2Context, RowTape
 from .zkp.proof import serialize_proof
 from .parallel.mesh import ShardedExecutor
 
@@ -68,9 +68,9 @@ def _field_sum(vals: list[int]) -> int:
 def _stage3_replay(executor, tape: RowTape, sample_index) -> list:
     """Stage 3 from the row tape: encode + gather the sampled columns of
     every recorded stage-1 batch in order — no third program execution,
-    and device-resident chunks never touch the host.  Produces the exact
-    host_samplings sequence Stage3Context would (flush boundaries only
-    group rows; the output is per-row ordered)."""
+    and device-resident chunks never touch the host.  Produces the rows'
+    sampled columns in row order, as the reference's third execution
+    does (flush boundaries only group rows)."""
     idx = np.asarray(sample_index, np.int32)
     outs: list[tuple[int, object]] = []
     for width, cnt, batch in tape.replay():
@@ -92,8 +92,7 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
           executor: TorchExecutor | None = None,
           mesh=None,
           batch_rows: int = 16,
-          device="cuda",
-          row_tape: bool = True) -> ProveResult:
+          device="cuda") -> ProveResult:
     """`device`: where a new executor runs its pipelines (ignored when
     `executor` is given); "cuda" raises when no card is present.
 
@@ -107,11 +106,11 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
     every rank (all raise if not); None, rank 0 draws it.  Set
     ``LIGERO_PROOF_TIMESTAMP`` alike on every rank for equal proof bytes.
 
-    `row_tape`: spool stage-1 rows to a temp file and replay them in
-    stage 3, skipping the third program execution (rows are identical by
-    construction — stage 3 draws the same encoding randomness and runs
-    no checks).  Costs 32*k bytes of spool per row; disable to reproduce
-    the reference's re-execution behavior exactly."""
+    Stage 3 replays stage 1's batches from a :class:`RowTape` in place of
+    the reference's third program execution (its rows are identical by
+    construction: stage 3 draws the same encoding randomness and runs no
+    checks).  The tape keeps device batches on the device up to
+    ``RowTape.CAP_BYTES`` (2 GiB), then host numpy copies."""
     k, l, n = geometry.k, geometry.l, geometry.n
     if executor is None:
         executor = ShardedExecutor(k, n, mesh, batch_rows) \
@@ -123,9 +122,9 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
         encoding_seed = os.urandom(32)  # prover-private randomness
 
     # Stage 1: commit ------------------------------------------------------
-    tape = RowTape(executor.fetch) if row_tape else None
+    tape = RowTape(executor.fetch)
     with timer("stage1"):
-        ctx1 = Stage1Context(executor, l, row_tape=tape)
+        ctx1 = Stage1Context(executor, l, tape)
         ctx1.init_encoding_random(encoding_seed, IV_ANY)
         with span("vm.run"):
             program(ctx1)
@@ -163,27 +162,17 @@ def prove(program, *, geometry: RowGeometry = RowGeometry(),
 
     # Stage 3: openings ----------------------------------------------------
     with timer("stage3"):
-        if tape is not None:
-            host_samplings = _stage3_replay(executor, tape, sample_index)
-            tape.close()
-            samplings = (np.concatenate(
-                [s.reshape(-1) for s in host_samplings])
-                if host_samplings else np.zeros(0, np.uint32))
-        else:
-            ctx3 = Stage3Context(executor, l, sample_index)
-            ctx3.init_encoding_random(encoding_seed, IV_ANY)
-            with span("vm.run"):
-                program(ctx3)
-            ctx3.finalize()
-            host_samplings = ctx3.host_samplings
-            samplings = ctx3.samplings_u32()
+        host_samplings = _stage3_replay(executor, tape, sample_index)
+        tape.close()
+        samplings = (np.concatenate(
+            [s.reshape(-1) for s in host_samplings])
+            if host_samplings else np.zeros(0, np.uint32))
 
     proof = serialize_proof(
         root, code_cw, linear_cw, quad_cw, sample_index, siblings,
         samplings, program_hash=program_hash, k=k, n=n)
-    _log.info("stage3: %d rows opened; proof %d bytes%s",
-              len(host_samplings), len(proof),
-              " (tape replay)" if tape is not None else "")
+    _log.info("stage3: %d rows opened; proof %d bytes (tape replay)",
+              len(host_samplings), len(proof))
 
     # Self-check (``webgpu_prover.cpp:461-484``)
     valid_code = all(v == 0 for v in decoded_code[k:])

@@ -1,8 +1,9 @@
 """Stage contexts: drive the witness manager callbacks into the executor.
 
 Port of ``ligero_prover_tpu.zkp.context`` (``zkp/nonbatch_context.hpp``'s
-four contexts).  Rows are queued (numpy limbs, or device rows from the
-vbn254fr arena) and flushed through the executor's batched pipelines.
+contexts; stage 3's is a replay of stage 1's rows, :class:`RowTape`).  Rows
+are queued (numpy limbs, or device rows from the vbn254fr arena) and
+flushed through the executor's batched pipelines.
 Every tensor is made by the executor (``zeros``, ``stack_batch``,
 ``fetch``, ``sha_digests``), so this module holds no framework code.
 Queue flushing preserves SHA absorb order and exploits that the
@@ -21,11 +22,11 @@ import numpy as np
 from ..field import bn254 as F
 from ..field.limbs import ints_to_limbs
 from .backend import Backend
-from .witness import (STAGE1_POLICY, STAGE2_POLICY, STAGE3_POLICY,
-                      VERIFIER_POLICY, RandomPolicy)
+from .witness import (STAGE1_POLICY, STAGE2_POLICY, VERIFIER_POLICY,
+                      RandomPolicy)
 from .executor import TorchExecutor, NLIMB
 from ..utils.timer import count, span
-from ..params import NUM_CODE_TEST, NUM_LINEAR_TEST, NUM_QUADRATIC_TEST
+from ..params import NUM_CODE_TEST, NUM_QUADRATIC_TEST
 
 
 class ProofRejected(Exception):
@@ -119,22 +120,24 @@ class RowTape:
     checks, so its row stream is a bit-exact replay of stage 1's — the
     reference re-executes the whole program a third time only because it
     refuses to store rows (``webgpu_prover.cpp:408``).  Recording the
-    already-built stage-1 batches (device tensors stay device-resident up
-    to `cap_bytes`, then spill to host numpy through `fetch`) lets the
-    prover skip the third interpreter execution entirely; see
-    ``prover._stage3_replay``.
+    already-built stage-1 batches lets the prover skip the third
+    interpreter execution entirely; see ``prover._stage3_replay``.  Host
+    batches (numpy) are kept as they are; device batches stay on the
+    device up to :attr:`CAP_BYTES` in all, and past it are fetched to host
+    numpy (`fetch`), to be uploaded again in stage 3.
     """
 
-    def __init__(self, fetch, cap_bytes: int = 2 << 30):
+    CAP_BYTES = 2 << 30
+
+    def __init__(self, fetch):
         self.chunks: list[tuple[int, int, object]] = []  # (width, cnt, batch)
         self._fetch = fetch
         self._device_bytes = 0
-        self._cap = cap_bytes
 
     def append_batch(self, batch, cnt: int, width: int):
         if not isinstance(batch, np.ndarray):
             nbytes = int(np.prod(batch.shape)) * 4
-            if self._device_bytes + nbytes > self._cap:
+            if self._device_bytes + nbytes > self.CAP_BYTES:
                 batch = self._fetch(batch)             # spill (batched D2H)
             else:
                 self._device_bytes += nbytes
@@ -153,13 +156,12 @@ class Stage1Context(_ContextBase):
 
     policy = STAGE1_POLICY
 
-    def __init__(self, executor: TorchExecutor, l: int,
-                 row_tape: RowTape | None = None):
+    def __init__(self, executor: TorchExecutor, l: int, tape: RowTape):
         super().__init__(executor)
         self._init_backend(l)
         self.sha = executor.sha_init(executor.n)
         self.rows_absorbed = 0
-        self.row_tape = row_tape
+        self.tape = tape
         self._queue: list[np.ndarray] = []
 
     # -- manager callbacks --
@@ -204,8 +206,7 @@ class Stage1Context(_ContextBase):
             batch = self.executor.stack_batch(
                 self._queue, self.executor.batch_rows, self.k)
             self.sha = self.executor.commit_step(self.sha, batch, cnt)
-            if self.row_tape is not None:
-                self.row_tape.append_batch(batch, cnt, self.k)
+            self.tape.append_batch(batch, cnt, self.k)
             self.rows_absorbed += cnt
             count("ctx.rows", cnt)
             self._queue = []
@@ -222,9 +223,8 @@ class Stage1Context(_ContextBase):
                                _to_limbs(quad, 2 * self.k)])
             self.sha = self.executor.commit_step(self.sha, batch2, 2,
                                                  width_2k=True)
-            if self.row_tape is not None:
-                self.row_tape.append_batch(batch, 1, self.k)
-                self.row_tape.append_batch(batch2, 2, 2 * self.k)
+            self.tape.append_batch(batch, 1, self.k)
+            self.tape.append_batch(batch2, 2, 2 * self.k)
             self.rows_absorbed += 3
             count("ctx.rows", 3)
 
@@ -382,88 +382,6 @@ class Stage2Context(_ContextBase):
     def codewords(self):
         """Returns (code, linear, quad) as (n, 8) numpy arrays."""
         return tuple(self.executor.fetch(a) for a in self.accs)
-
-
-class Stage3Context(_ContextBase):
-    """Openings: gather the sampled columns of every row's codeword
-    (``nonbatch_context.hpp:878-1071``)."""
-
-    policy = STAGE3_POLICY
-
-    def __init__(self, executor: TorchExecutor, l: int,
-                 sample_index: list[int]):
-        super().__init__(executor)
-        self._init_backend(l)
-        self.sample_index = np.asarray(sample_index, np.int32)
-        self._queue: list[np.ndarray] = []
-        self.host_samplings: list[np.ndarray] = []  # (S, 8) per row, ordered
-
-    def linear_callback(self, row, rand):
-        self._push(row)
-
-    def quadratic_callback(self, vals, rands):
-        for i in range(3):
-            self._push(vals[i])
-
-    def mask_callback(self, code, linear, quad):
-        self._flush()
-        with span("ctx.flush"):
-            # dedicated 1-row open for the code mask (no full-batch
-            # padding)
-            batch1 = _to_limbs(code, self.k)[None]
-            out1 = self.executor.fetch(
-                self.executor.open_step(batch1, self.sample_index))
-            self.host_samplings.append(out1[0])
-            batch2 = np.stack([_to_limbs(linear, 2 * self.k),
-                               _to_limbs(quad, 2 * self.k)])
-            out = self.executor.open_step(batch2, self.sample_index,
-                                          width_2k=True)
-            arr = self.executor.fetch(out)
-            self.host_samplings.extend([arr[0], arr[1]])
-
-    # -- batch hooks (``nonbatch_context.hpp:996-1048``): sample each
-    # committed batch row like any witness row.
-    def on_batch_init(self, row: np.ndarray):
-        self._push(row, raw=True)
-
-    def on_batch_bit(self, row: np.ndarray):
-        self._push(row, raw=True)
-
-    def on_batch_equal(self, rx, ry):
-        self._push(rx, raw=True)
-        self._push(ry, raw=True)
-
-    def on_batch_quadratic(self, rx, ry, rz):
-        self._push(rx, raw=True)
-        self._push(ry, raw=True)
-        self._push(rz, raw=True)
-
-    def _push(self, row, raw=False):
-        self._queue.append(row if raw else _to_limbs(row, self.k))
-        if len(self._queue) >= self.executor.batch_rows:
-            self._flush()
-
-    def _flush(self):
-        if not self._queue:
-            return
-        with span("ctx.flush"):
-            cnt = len(self._queue)
-            batch = self.executor.stack_batch(
-                self._queue, self.executor.batch_rows, self.k)
-            out = self.executor.fetch(
-                self.executor.open_step(batch, self.sample_index))
-            self.host_samplings.extend(out[i] for i in range(cnt))
-            self._queue = []
-
-    def finalize(self):
-        super().finalize()
-        self._flush()
-
-    def samplings_u32(self) -> np.ndarray:
-        """Flat row-major sampled data: rows x S x 8 limbs."""
-        if not self.host_samplings:
-            return np.zeros(0, np.uint32)
-        return np.concatenate([s.reshape(-1) for s in self.host_samplings])
 
 
 class VerifierContext(_ContextBase):

@@ -1,14 +1,14 @@
 """Torch executor: batched stage pipelines on one device.
 
-Port of ``ligero_prover_tpu.zkp.executor``, in its two constant-geometry
-configurations: planar (limb-plane codewords, the KB/KE kernels and the
-planar SHA absorb; the default for CUDA tensors) and AoS (K1 plus plain
-limb arithmetic; the default for CPU tensors).  ``ops.ntt.USE_PLANAR``
-overrides the choice, which the executor resolves once when it is made.
-With ``ops.ntt.USE_MXU`` (resolved the same way) the k-width encode of
-commit, check and open goes through the int8 four-step engine
-(``ops/mxu_ntt.py``) in either configuration; 2k mask rows, decode and the
-verifier keep the butterfly encode.
+Port of ``ligero_prover_tpu.zkp.executor`` in its planar constant-geometry
+configuration, on every device: the prover's codewords are limb planes,
+encoded by the KB/KE kernels and absorbed by the planar SHA kernel (on CPU
+tensors each kernel runs its plain torch version).  The verifier's
+192-column samples stay (B, 192, 8) rows, folded by KF and absorbed by K3.
+With ``ops.ntt.USE_MXU`` (resolved once when the executor is made) the
+k-width encode of commit, check and open goes through the int8 four-step
+engine (``ops/mxu_ntt.py``); 2k mask rows, decode and the verifier keep
+the butterfly encode.
 The contexts queue rows on the host and flush them through one call per
 batch:
 
@@ -39,9 +39,9 @@ from ..ops import fieldmul as fm
 from ..ops import fieldops as fo
 from ..ops import sha256 as tsha
 from ..ops.fieldops import R2_LIMBS
-from ..ops.mxu_ntt import encode_rows_mxu, encode_rows_mxu_core
-from ..ops.ntt import RSCodec, _mxu_use, _planar_use, decode_rows, \
-    encode_rows, encode_rows_cg, encode_rows_cg_planar_core
+from ..ops.mxu_ntt import encode_rows_mxu_core
+from ..ops.ntt import RSCodec, _mxu_use, decode_rows_cg_planar, \
+    encode_rows_cg_planar, encode_rows_cg_planar_core
 from ..utils.timer import span
 
 NLIMB = 8
@@ -64,29 +64,24 @@ def _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs):
     return encode_rows_cg_planar_core(rows, dom_msg, dom_n, n)
 
 
-def _encode_aos(rows, dom_msg, dom_n, n, mxu_tabs):
-    """(B, w, 8) rows -> (B, n, 8) codewords, AoS configuration."""
-    if mxu_tabs is not None:
-        return encode_rows_mxu(rows, mxu_tabs, n)
-    return encode_rows_cg(rows, dom_msg, dom_n, n)
-
-
 def _commit_body(state, pending, has_pending, rows, valid_count,
-                 dom_msg, dom_n, n, use_planar=False, mxu_tabs=None):
-    if use_planar:
-        cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
-        return tsha.absorb_stream_planar(state, pending, has_pending, cws,
-                                         valid_count)
-    cws = _encode_aos(rows, dom_msg, dom_n, n, mxu_tabs)
-    return tsha.absorb_stream(state, pending, has_pending, cws, valid_count)
+                 dom_msg, dom_n, n, mxu_tabs=None):
+    cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
+    return tsha.absorb_stream_planar(state, pending, has_pending, cws,
+                                     valid_count)
 
 
-def _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r):
-    """Accumulate quadratic-test terms: r*(x∘y - z) for each (x,y,z) triple
-    and r*(x - y) for each batch-equality pair.  Padded entries carry zero
+def _verify_terms(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
+                  pair_idx, pair_r):
+    """The verifier's accumulation of the three tests over the sampled
+    columns e (B, S, 8) and the sampled randomness rows r (B, S, 8): code
+    and linear tests, then r*(x∘y - z) for each (x,y,z) triple and
+    r*(x - y) for each batch-equality pair.  Padded entries carry zero
     scalars and contribute nothing.  Each sum is the reference's
     ``_masked_sum(acc, fo.mulmod(x, y))``: acc plus the B products, added
     in row order, one fused KF launch on CUDA tensors."""
+    code = fm.masked_mulsum_aos(code, e, code_rs[:, None, :])
+    linear = fm.masked_mulsum_aos(linear, e, r)
     ex = e.index_select(0, tri_idx[:, 0])
     ey = e.index_select(0, tri_idx[:, 1])
     ez = e.index_select(0, tri_idx[:, 2])
@@ -95,7 +90,7 @@ def _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r):
     px = e.index_select(0, pair_idx[:, 0])
     py = e.index_select(0, pair_idx[:, 1])
     d = fo.submod(px, py)
-    return fm.masked_mulsum_aos(quad, d, pair_r[:, None, :])
+    return code, linear, fm.masked_mulsum_aos(quad, d, pair_r[:, None, :])
 
 
 def _tree_sum_mod_planar(x):
@@ -116,7 +111,7 @@ def _tree_sum_mod_planar(x):
 
 def _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
                         pair_idx, pair_r):
-    """Planar stage-2 accumulation (reference ``executor.py:175-252``) of
+    """Stage-2 accumulation (reference ``executor.py:175-252``) of
     the encoded rows e (8, B, n) and encoded randomness rows r (8, B, n),
     or r None when the rands are zero: the codewords stay limb planes; the
     code and linear tests are one KE launch per op over the whole batch
@@ -152,64 +147,47 @@ def _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
     return code.T.contiguous(), linear, quad
 
 
-def _check_terms_aos(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
-                     pair_idx, pair_r):
-    """AoS twin of :func:`_check_terms_planar`: e and r (B, n, 8), the
-    row indices tensors on e's device."""
-    code = fm.masked_mulsum_aos(code, e, code_rs[:, None, :])
-    if r is not None:
-        linear = fm.masked_mulsum_aos(linear, e, r)
-    quad = _quad_contrib(quad, e, tri_idx, tri_r, pair_idx, pair_r)
-    return code, linear, quad
-
-
 def _check_body(code, linear, quad, rows, rands, code_rs, tri_idx, tri_r,
-                pair_idx, pair_r, dom_k, dom_n, n, use_planar=False,
-                rands_zero=False, mxu_tabs=None):
+                pair_idx, pair_r, dom_k, dom_n, n, rands_zero=False,
+                mxu_tabs=None):
     """Encode the rows (and the rands) and accumulate the three tests.
     `rands_zero`: the flush carries only batch rows, which have no
     linear-test randomness rows; the second encode and the linear
     accumulation are identities on zeros and are skipped."""
-    encode = _encode_planes if use_planar else _encode_aos
-    terms = _check_terms_planar if use_planar else _check_terms_aos
-    e = encode(rows, dom_k, dom_n, n, mxu_tabs)
-    r = None if rands_zero else encode(rands, dom_k, dom_n, n, mxu_tabs)
-    return terms(code, linear, quad, e, r, code_rs, tri_idx, tri_r,
-                 pair_idx, pair_r)
+    e = _encode_planes(rows, dom_k, dom_n, n, mxu_tabs)
+    r = None if rands_zero else _encode_planes(rands, dom_k, dom_n, n,
+                                               mxu_tabs)
+    return _check_terms_planar(code, linear, quad, e, r, code_rs, tri_idx,
+                               tri_r, pair_idx, pair_r)
 
 
-def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n,
-               use_planar=False):
-    code = fo.addmod(code, encode_rows(cr[None], dom_k, dom_n, n,
-                                       use_planar)[0])
-    linear = fo.addmod(linear, encode_rows(lr[None], dom_2k, dom_n, n,
-                                           use_planar)[0])
-    quad = fo.addmod(quad, encode_rows(qr[None], dom_2k, dom_n, n,
-                                       use_planar)[0])
+def _mask_body(code, linear, quad, cr, lr, qr, dom_k, dom_2k, dom_n, n):
+    code = fo.addmod(code, encode_rows_cg_planar(cr[None], dom_k, dom_n,
+                                                 n)[0])
+    linear = fo.addmod(linear, encode_rows_cg_planar(lr[None], dom_2k,
+                                                     dom_n, n)[0])
+    quad = fo.addmod(quad, encode_rows_cg_planar(qr[None], dom_2k, dom_n,
+                                                 n)[0])
     return code, linear, quad
 
 
-def _open_body(rows, idx, dom_msg, dom_n, n, use_planar=False,
-               mxu_tabs=None):
-    """Encode (B, w, 8) rows and keep the sampled columns: (B, S, 8).  The
-    planar path and the int8 engine gather from the limb planes, so only
-    the S sampled columns are transposed back."""
-    if use_planar or mxu_tabs is not None:      # the engine makes planes
-        cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
-        return cws.index_select(2, idx).movedim(0, -1).contiguous()
-    return encode_rows_cg(rows, dom_msg, dom_n, n).index_select(1, idx)
+def _open_body(rows, idx, dom_msg, dom_n, n, mxu_tabs=None):
+    """Encode (B, w, 8) rows and keep the sampled columns: (B, S, 8),
+    gathered from the limb planes, so only the S sampled columns are
+    transposed back."""
+    cws = _encode_planes(rows, dom_msg, dom_n, n, mxu_tabs)
+    return cws.index_select(2, idx).movedim(0, -1).contiguous()
 
 
 def _verify_body(state, pending, has_pending, code, linear, quad,
                  samples, rands, code_rs, tri_idx, tri_r, pair_idx, pair_r,
-                 idx, valid_count, dom_k, dom_n, n, use_planar=False):
+                 idx, valid_count, dom_k, dom_n, n):
     state, pending, has_pending = tsha.absorb_stream(
         state, pending, has_pending, samples, valid_count)
-    r = _open_body(rands, idx, dom_k, dom_n, n, use_planar)
-    code = fm.masked_mulsum_aos(code, samples, code_rs[:, None, :])
-    linear = fm.masked_mulsum_aos(linear, samples, r)
-    quad = _quad_contrib(quad, samples, tri_idx, tri_r, pair_idx, pair_r)
-    return state, pending, has_pending, code, linear, quad
+    r = _open_body(rands, idx, dom_k, dom_n, n)
+    return (state, pending, has_pending) + _verify_terms(
+        code, linear, quad, samples, r, code_rs, tri_idx, tri_r, pair_idx,
+        pair_r)
 
 
 def _verify_mask_body(state, pending, has_pending, code, linear, quad, ms):
@@ -234,7 +212,6 @@ class TorchExecutor:
         with span("executor.init"):         # the codec's domain tables
             self.codec = RSCodec(k, n, self.device)
         self.batch_rows = batch_rows
-        self.use_planar = _planar_use(self.device)
         self.use_mxu = _mxu_use(self.device)
 
     # ---- tensors ---------------------------------------------------------
@@ -292,36 +269,31 @@ class TorchExecutor:
         state, pending, has_pending = sha
         return _commit_body(state, pending, has_pending, self._limbs(rows),
                             int(valid_count), dom, self.codec.dom_n, self.n,
-                            self.use_planar, self._mxu_tabs(width_2k))
+                            self._mxu_tabs(width_2k))
 
     # ---- stage 2: checks -------------------------------------------------
 
     def check_step(self, accs, rows, rands, code_rs, tri_idx, tri_r,
                    pair_idx, pair_r, rands_zero=False):
-        # the planar path's KQ checks the quadratic test's indices and
-        # scalars on the host and uploads them together
-        index, scal = ((lambda a: a,) * 2 if self.use_planar
-                       else (self._index, self._limbs))
+        # KQ checks the quadratic test's indices and scalars on the host
+        # and uploads them together
         return _check_body(*accs, self._limbs(rows), self._limbs(rands),
-                           self._limbs(code_rs), index(tri_idx),
-                           scal(tri_r), index(pair_idx),
-                           scal(pair_r), self.codec.dom_k,
-                           self.codec.dom_n, self.n, self.use_planar,
-                           rands_zero, self._mxu_tabs())
+                           self._limbs(code_rs), tri_idx, tri_r, pair_idx,
+                           pair_r, self.codec.dom_k, self.codec.dom_n,
+                           self.n, rands_zero, self._mxu_tabs())
 
     def mask_step(self, accs, code_row, linear_row, quad_row):
         return _mask_body(*accs, self._limbs(code_row),
                           self._limbs(linear_row), self._limbs(quad_row),
                           self.codec.dom_k, self.codec.dom_2k,
-                          self.codec.dom_n, self.n, self.use_planar)
+                          self.codec.dom_n, self.n)
 
     # ---- stage 3: openings ----------------------------------------------
 
     def open_step(self, rows, sample_idx, *, width_2k=False):
         dom = self.codec.dom_2k if width_2k else self.codec.dom_k
         return _open_body(self._limbs(rows), self._index(sample_idx), dom,
-                          self.codec.dom_n, self.n, self.use_planar,
-                          self._mxu_tabs(width_2k))
+                          self.codec.dom_n, self.n, self._mxu_tabs(width_2k))
 
     # ---- verifier --------------------------------------------------------
 
@@ -334,7 +306,7 @@ class TorchExecutor:
                            self._limbs(tri_r), self._index(pair_idx),
                            self._limbs(pair_r), self._index(sample_idx),
                            int(valid_count), self.codec.dom_k,
-                           self.codec.dom_n, self.n, self.use_planar)
+                           self.codec.dom_n, self.n)
         return (out[0], out[1], out[2]), (out[3], out[4], out[5])
 
     def verify_mask_step(self, sha, accs, mask_samples):
@@ -346,9 +318,10 @@ class TorchExecutor:
     # ---- decode / sha ----------------------------------------------------
 
     def decode(self, codeword):
-        """(n, 8) -> (n, 8) decoded (see ops.ntt.decode_rows_cg)."""
-        return decode_rows(self._limbs(codeword)[None], self.codec.dom_k,
-                           self.codec.dom_n, self.k, self.use_planar)[0]
+        """(n, 8) -> (n, 8) decoded (see ops.ntt.decode_rows_cg_planar)."""
+        return decode_rows_cg_planar(self._limbs(codeword)[None],
+                                     self.codec.dom_k, self.codec.dom_n,
+                                     self.k)[0]
 
     def sha_init(self, num_cols: int):
         return (tsha.initial_state(num_cols, self.device),

@@ -14,13 +14,11 @@ The config holds ``rank``, ``world``, ``port`` (the launcher's
 ``TCPStore``), ``timeout`` (seconds of the process group's collectives),
 ``local`` (L), ``mode`` and the mode's own keys:
 
-* ``prove``: ``program`` (a WAT path), ``k``, ``batch_rows``, ``planar``
-  (``ops.ntt.USE_PLANAR``), ``seed`` (hex, or null: rank 0 draws it) and
-  ``out`` (a directory): prove through ``prove(..., mesh=...)`` with
+* ``prove``: ``program`` (a WAT path), ``k``, ``batch_rows``, ``seed``
+  (hex, or null: rank 0 draws it) and ``out`` (a directory): prove through ``prove(..., mesh=...)`` with
   ``LIGERO_PROOF_TIMESTAMP=1700000000`` and write the proof to
   ``out/proof<rank>.gz``.
-* ``steps``: ``inputs`` (an npz the launcher wrote), ``k``, ``planar``,
-  ``out``: run every step of a ``ShardedExecutor`` from the rank's share of
+* ``steps``: ``inputs`` (an npz the launcher wrote), ``k``, ``out``: run every step of a ``ShardedExecutor`` from the rank's share of
   the whole column state and write the gathered outputs to
   ``out/steps<rank>.npz``.
 * ``mesh``: only build the mesh and a ``ShardedExecutor`` at ``k``
@@ -52,12 +50,13 @@ def prove_mode(cfg, mesh):
         f.write(res.proof)
     return {"ok": res.ok, "proof": path,
             "sha256": hashlib.sha256(res.proof).hexdigest(),
-            "planar_passes": fm.PLAIN_CALLS["butterfly_dit"]["cpu"]}
+            "butterfly_passes": fm.PLAIN_CALLS["butterfly_dit"]["cpu"]}
 
 
 def steps_mode(cfg, mesh):
     import numpy as np
     from ligero_prover_tpu_torch import convert
+    from ligero_prover_tpu_torch.ops import fieldmul as fm
     from ligero_prover_tpu_torch.parallel.mesh import ShardedExecutor
 
     k, D = cfg["k"], mesh.size
@@ -90,7 +89,8 @@ def steps_mode(cfg, mesh):
     out["decode"] = ex.fetch(ex.decode(accs[0]))
     path = os.path.join(cfg["out"], f"steps{mesh.rank}.npz")
     np.savez(path, **out)
-    return {"steps": path, "planar": ex.use_planar}
+    return {"steps": path,
+            "butterfly_passes": fm.PLAIN_CALLS["butterfly_dit"]["cpu"]}
 
 
 def mesh_mode(cfg, mesh):
@@ -114,9 +114,7 @@ def main():
     dist.init_process_group("gloo", store=store, rank=cfg["rank"],
                             world_size=cfg["world"], timeout=timeout)
     try:
-        from ligero_prover_tpu_torch.ops import ntt
         from ligero_prover_tpu_torch.parallel.mesh import make_mesh
-        ntt.USE_PLANAR = cfg.get("planar")
         mesh = make_mesh(["cpu"] * cfg["local"])
         out = MODES[cfg["mode"]](cfg, mesh)
         out["counts"] = mesh.counts

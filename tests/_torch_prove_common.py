@@ -1,6 +1,10 @@
 """Shared set-up of the whole-slice parity tests (``test_torch_prove*.py``):
 the programs, both packages' executors at k=256, and both packages' proofs
-of each program at a fixed encoding seed and proof timestamp."""
+of each program at a fixed encoding seed and proof timestamp.
+
+A program named ``<name>@b5`` is ``<name>`` proved by the port at 5 rows a
+flush (partial batches, and the mask rows at other flush boundaries),
+against the same JAX proof at 8."""
 
 import os
 
@@ -22,6 +26,7 @@ from test_sdk_guest import ARGS as SDK_ARGS, SDK_GUEST_WAT
 import _torch_helpers  # noqa: F401  (thread count)
 
 K = 256
+ODD = "@b5"
 SEED = bytes(range(32))
 ECDSA = os.path.join(os.path.dirname(__file__), "guests", "ecdsa_p256.wat")
 
@@ -45,14 +50,21 @@ GUESTS = {
 
 
 def make_env():
-    return {"jex": TpuExecutor(K, 4 * K, 8), "tex": TorchExecutor(
-        K, 4 * K, 8, "cpu"), "jgeo": JGeometry(K), "tgeo": RowGeometry(K)}
+    return {"jex": TpuExecutor(K, 4 * K, 8),
+            "tex": TorchExecutor(K, 4 * K, 8, "cpu"),
+            "tex" + ODD: TorchExecutor(K, 4 * K, 5, "cpu"),
+            "jgeo": JGeometry(K), "tgeo": RowGeometry(K)}
+
+
+def odd(programs, names):
+    """`names` of `programs` again as ``<name>@b5``."""
+    return {name + ODD: programs[name] for name in names}
 
 
 def make_proofs(env, programs, reference=None):
     """Both packages' proofs of every program: name -> (JAX, port).  The
-    JAX proofs are kept in `reference` (name -> proof) when given, so a
-    second configuration of the port reuses them."""
+    JAX proofs are kept in `reference` (name -> proof; ``<name>@b5`` reads
+    ``<name>``'s), so a second configuration of the port reuses them."""
     mp = pytest.MonkeyPatch()
     mp.setenv("LIGERO_PROOF_TIMESTAMP", "1700000000")
     out = {}
@@ -60,13 +72,15 @@ def make_proofs(env, programs, reference=None):
         reference = {}
     try:
         for name, (jprog, tprog) in programs.items():
-            if name not in reference:
-                reference[name] = jprover.prove(
+            base = name.removesuffix(ODD)
+            if base not in reference:
+                reference[base] = jprover.prove(
                     jprog, geometry=env["jgeo"], executor=env["jex"],
                     encoding_seed=SEED)
-            j = reference[name]
-            t = tprover.prove(tprog, geometry=env["tgeo"],
-                              executor=env["tex"], encoding_seed=SEED)
+            j = reference[base]
+            tex = env["tex" + ODD] if name.endswith(ODD) else env["tex"]
+            t = tprover.prove(tprog, geometry=env["tgeo"], executor=tex,
+                              encoding_seed=SEED)
             out[name] = (j, t)
     finally:
         mp.undo()

@@ -14,6 +14,8 @@ every other kernel's plain version from them.
 * No kernel's plain version, nor the planar NTT scans on CPU tensors,
   reaches the KA/KF wrappers: they are patched to raise while every
   ``*_plain`` of ``ops/fieldmul.py`` runs.
+* The executor's mask step and the verifier's quadratic test reach KA
+  through its wrapper.
 
 The element functions themselves are held in ``tests/test_torch_aos_core.py``
 (g++), and the kernels on the card in ``tests/test_torch_kernels.py``.
@@ -34,6 +36,7 @@ from ligero_prover_tpu_torch.field.limbs import ints_to_limbs
 from ligero_prover_tpu_torch.ops import fieldmul as tfm
 from ligero_prover_tpu_torch.ops import fieldops as tfo
 from ligero_prover_tpu_torch.ops import ntt as tntt
+from ligero_prover_tpu_torch.zkp import executor as tex
 
 from _torch_helpers import EDGES, NONCANONICAL, rand_limbs, to_np, to_t
 
@@ -232,22 +235,32 @@ def test_plain_versions_do_not_reach_the_aos_wrappers(monkeypatch):
                                codec.dom_n, k)
     tabs = tntt.coset_tables(k, n, 2, 1)
     tntt.encode_rows_coset_planar_core(
-        tntt.coset_coeffs(rows, codec.dom_k, True), tabs)
+        tntt.coset_coeffs(rows, codec.dom_k), tabs)
     assert set(tfm.LAUNCHES.values()) == {0}
     # KA's and KF's plain versions ran once each, called above by name
     assert {k: dict(tfm.PLAIN_CALLS[k]) for k in WRAPPERS} == \
         {k: {"cpu": 1} for k in WRAPPERS}
 
 
-def test_aos_codec_runs_through_ka():
-    """The AoS codec is a main-path caller, not a plain version: its
-    additions go through the KA wrapper (here its plain version, on CPU
-    tensors)."""
-    k, n = 16, 64
-    codec = tntt.RSCodec(k, n, "cpu")
-    rows = to_t(rand_limbs(np.random.default_rng(12), (2, k)))
+def test_executor_steps_run_through_ka():
+    """The mask step's three adds into the accumulators and the
+    verifier's two subtractions (e_x*e_y - e_z, and x - y of the pairs)
+    are main-path callers, not plain versions: they go through the KA
+    wrapper (here its plain version, on CPU tensors)."""
+    k, n, b = 16, 64, 3
+    ex = tex.TorchExecutor(k, n, b, "cpu")
+    gen = np.random.default_rng(12)
+    accs = tuple(to_t(rand_limbs(gen, (n,))) for _ in range(3))
     tfm.reset_counts()
-    cws = tntt.encode_rows_cg(rows, codec.dom_k, codec.dom_n, n)
-    tntt.decode_rows_cg(cws, codec.dom_k, codec.dom_n, k)
-    assert tfm.PLAIN_CALLS["addmod_aos"]["cpu"] > 0
-    assert tfm.PLAIN_CALLS["submod_aos"]["cpu"] > 0
+    ex.mask_step(accs, rand_limbs(gen, (k,)), rand_limbs(gen, (2 * k,)),
+                 rand_limbs(gen, (2 * k,)))
+    assert tfm.PLAIN_CALLS["addmod_aos"]["cpu"] == 3
+    e, r = (to_t(rand_limbs(gen, (b, 6))) for _ in range(2))
+    sums = [to_t(rand_limbs(gen, (6,))) for _ in range(3)]
+    scalars = [to_t(rand_limbs(gen, (b,))) for _ in range(3)]
+    tri = torch.tensor([[0, 1, 2], [1, 1, 0], [2, 0, 1]])
+    pair = torch.tensor([[0, 1], [2, 2], [1, 0]])
+    tfm.reset_counts()
+    tex._verify_terms(*sums, e, r, scalars[0], tri, scalars[1], pair,
+                      scalars[2])
+    assert tfm.PLAIN_CALLS["submod_aos"]["cpu"] == 2

@@ -95,20 +95,20 @@ class Group:
                 p.communicate()
 
 
-def _prove(out_dir, program, world, local, planar=None, seeds=None):
+def _prove(out_dir, program, world, local, seeds=None):
     seeds = seeds or [SEED.hex()] * world
     return [{"mode": "prove", "program": program, "k": K, "batch_rows": B,
-             "planar": planar, "seed": seed, "local": local,
-             "out": str(out_dir)} for seed in seeds]
+             "seed": seed, "local": local, "out": str(out_dir)}
+            for seed in seeds]
 
 
-# name -> (program, P, L, USE_PLANAR)
-PROOFS = {"make_wat3-P2xL2-aos": ("make_wat3", 2, 2, None),
-          "make_wat3-P4xL1-planar": ("make_wat3", 4, 1, True),
-          "make_wat3-P2xL4-aos": ("make_wat3", 2, 4, None),
-          "bit_decompose-P2xL2-aos": ("bit_decompose", 2, 2, None)}
-# name -> (P, L, USE_PLANAR): D = 8, as the JAX executor's 8 devices
-STEPS = {"P2xL4-aos": (2, 4, None), "P4xL2-planar": (4, 2, True)}
+# name -> (program, P, L)
+PROOFS = {"make_wat3-P2xL2": ("make_wat3", 2, 2),
+          "make_wat3-P4xL1": ("make_wat3", 4, 1),
+          "make_wat3-P2xL4": ("make_wat3", 2, 4),
+          "bit_decompose-P2xL2": ("bit_decompose", 2, 2)}
+# name -> (P, L): D = 8, as the JAX executor's 8 devices
+STEPS = {"P2xL4": (2, 4), "P4xL2": (4, 2)}
 
 
 def _step_inputs(path):
@@ -148,17 +148,16 @@ def groups(tmp_path_factory):
     inputs = base / "inputs.npz"
     step_inputs = _step_inputs(inputs)
     started = {}
-    for name, (prog, world, local, planar) in PROOFS.items():
+    for name, (prog, world, local) in PROOFS.items():
         out = base / name
         out.mkdir()
-        started[name] = Group(_prove(out, programs[prog], world, local,
-                                     planar))
-    for name, (world, local, planar) in STEPS.items():
+        started[name] = Group(_prove(out, programs[prog], world, local))
+    for name, (world, local) in STEPS.items():
         out = base / f"steps-{name}"
         out.mkdir()
         started[f"steps-{name}"] = Group([{
             "mode": "steps", "inputs": str(inputs), "k": K,
-            "planar": planar, "local": local, "out": str(out)}] * world)
+            "local": local, "out": str(out)}] * world)
     for name, seeds in (("seed-none", [None, None]),
                         ("seed-differs", [SEED.hex(), bytes(32).hex()])):
         out = base / name
@@ -180,8 +179,8 @@ def env():
 
 @pytest.fixture(scope="module")
 def references(groups, env):
-    """program -> the port's one-process proof (AoS, the CPU default), and
-    the JAX single-device proof of make_wat(3)."""
+    """program -> the port's one-process proof, and the JAX single-device
+    proof of make_wat(3)."""
     progs = {"make_wat3": _wat(make_wat(3), [])}
     both = make_proofs(env, progs)
     mp = pytest.MonkeyPatch()
@@ -212,7 +211,7 @@ def test_every_rank_proves_the_single_device_proof(groups, references,
     """Every rank's proof == each other's == the port's one-process proof
     (== the JAX single-device proof, for make_wat(3)); each rank made
     collectives over the CPU tensors and staged nothing."""
-    prog, world, local, planar = PROOFS[name]
+    prog, world, local = PROOFS[name]
     proofs = _rank_proofs(groups["groups"][name])
     assert len(proofs) == world
     port, jax_proof = references[prog]
@@ -221,7 +220,7 @@ def test_every_rank_proves_the_single_device_proof(groups, references,
     if jax_proof is not None:
         assert jax_proof.ok and jax_proof.proof == port.proof
     for res in groups["groups"][name].ok():
-        assert (res["planar_passes"] > 0) is bool(planar)
+        assert res["butterfly_passes"] > 0
         counts = res["counts"]
         assert counts["collectives"] > 0 and counts["bytes"] > 0
         assert counts["staged_bytes"] == 0
@@ -232,7 +231,7 @@ def test_bit_decompose_ranks_equal_the_jax_proof(groups, env):
     """bit_decompose.wat's rank proofs == the JAX single-device proof
     (the JAX prove takes about two minutes on this CPU)."""
     from ligero_prover_tpu import prover as jprover
-    proofs = _rank_proofs(groups["groups"]["bit_decompose-P2xL2-aos"])
+    proofs = _rank_proofs(groups["groups"]["bit_decompose-P2xL2"])
     mp = pytest.MonkeyPatch()
     mp.setenv("LIGERO_PROOF_TIMESTAMP", "1700000000")
     try:
@@ -245,7 +244,7 @@ def test_bit_decompose_ranks_equal_the_jax_proof(groups, env):
 
 
 def test_port_verifier_accepts_a_rank_proof(groups, env):
-    proof = _rank_proofs(groups["groups"]["make_wat3-P4xL1-planar"])[3]
+    proof = _rank_proofs(groups["groups"]["make_wat3-P4xL1"])[3]
     assert tverifier.verify(_wat(make_wat(3), [])[1], proof,
                             geometry=env["tgeo"], executor=env["tex"]).ok
 
@@ -290,11 +289,11 @@ def test_steps_match_jax(groups, jax_steps, name):
     """commit + finalize, check + fetch, mask, open (k and 2k rows) and
     decode, run by every rank on its share of the column state and
     gathered, equal the JAX ShardedExecutor's on every rank."""
-    world, _, planar = STEPS[name]
+    world, _ = STEPS[name]
     results = groups["groups"][f"steps-{name}"].ok()
     assert len(results) == world
     for res in results:
-        assert res["planar"] is bool(planar)
+        assert res["butterfly_passes"] > 0
         got = dict(np.load(res["steps"]))
         assert sorted(got) == sorted(jax_steps)
         for key, want in jax_steps.items():

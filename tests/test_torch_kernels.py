@@ -3,9 +3,9 @@
 verifier's ordered fold), KB (planar butterfly
 passes), KE (planar element-wise ops and quad-terms) and KR digitize
 against their plain PyTorch versions, the golden Python-int model and
-hashlib; the executor (planar, the CUDA default, and AoS) and a whole
-proof on the card against the same on the CPU.  Every test here needs a
-CUDA device and skips without one.  This file imports no JAX, so it runs
+hashlib; the executor's steps and a whole proof on the card against the
+same on the CPU.  Every test here needs a CUDA device and skips without
+one.  This file imports no JAX, so it runs
 on a machine without it:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
@@ -126,13 +126,13 @@ def test_sha_kernel_matches_plain_and_hashlib(cuda_device, schedule):
 
 
 def test_executor_steps_match_cpu(cuda_device):
-    """The CUDA default (planar) against the CPU default (AoS)."""
+    """The kernels against the plain versions, step by step: commit,
+    check and decode on the card equal them on the CPU."""
     from ligero_prover_tpu_torch import convert
     from ligero_prover_tpu_torch.zkp.executor import TorchExecutor
     k, n, b = 256, 1024, 8
     gpu, cpu = TorchExecutor(k, n, b, cuda_device), TorchExecutor(k, n, b,
                                                                   "cpu")
-    assert gpu.use_planar and not cpu.use_planar
     gen = np.random.default_rng(9)
     rows = rand_limbs(gen, (b, k))
     sha = gpu.sha_init(n)
@@ -150,6 +150,9 @@ def test_executor_steps_match_cpu(cuda_device):
     want = cpu.check_step(convert.accs_from_numpy(accs), *args)
     for g, w in zip(convert.to_numpy(got), convert.to_numpy(want)):
         np.testing.assert_array_equal(g, w)
+    cw = rand_limbs(gen, (n,))
+    np.testing.assert_array_equal(convert.to_numpy(gpu.decode(cw)),
+                                  convert.to_numpy(cpu.decode(cw)))
 
 
 def test_proof_bytes_match_cpu(cuda_device, monkeypatch):
@@ -327,27 +330,6 @@ def test_sha_kernel_at_each_tile(cuda_device, planar, cols):
     want = [hashlib.sha256(stream[:, c].astype(">u4").tobytes()).digest()
             for c in range(cols)]
     assert tsha.digests_to_bytes(final) == want
-
-
-def test_aos_executor_steps_match_cpu(cuda_device, monkeypatch):
-    """The AoS configuration stays selectable on the card."""
-    from ligero_prover_tpu_torch import convert
-    from ligero_prover_tpu_torch.ops import ntt
-    from ligero_prover_tpu_torch.zkp.executor import TorchExecutor
-    monkeypatch.setattr(ntt, "USE_PLANAR", False)
-    k, n, b = 256, 1024, 8
-    gpu, cpu = TorchExecutor(k, n, b, cuda_device), TorchExecutor(k, n, b,
-                                                                  "cpu")
-    assert not gpu.use_planar
-    gen = np.random.default_rng(19)
-    rows = rand_limbs(gen, (b, k))
-    got = gpu.commit_step(gpu.sha_init(n), rows, 5)
-    want = cpu.commit_step(cpu.sha_init(n), rows, 5)
-    for g, w in zip(convert.to_numpy(got), convert.to_numpy(want)):
-        np.testing.assert_array_equal(g, w)
-    cw = rand_limbs(gen, (n,))
-    np.testing.assert_array_equal(convert.to_numpy(gpu.decode(cw)),
-                                  convert.to_numpy(cpu.decode(cw)))
 
 
 @pytest.mark.parametrize("name", ["mont_mul_planar", "mulmod_planar"])
@@ -602,8 +584,8 @@ def test_masked_sum_kernel_matches_plain(cuda_device, rows, n):
 @pytest.mark.parametrize("rows,n", [(0, 192), (1, 192), (16, 192),
                                     (17, 192), (100, 192), (16, 32768)])
 def test_masked_mulsum_kernel_matches_plain(cuda_device, rows, n, full):
-    """Fused KF at the verifier's and the AoS check's calls (B = 100: two
-    chunks of products at 32 columns a CTA would not fit one), on
+    """Fused KF at the verifier's calls and a codeword-wide one (B = 100:
+    two chunks of products at 32 columns a CTA would not fit one), on
     non-canonical acc, x and y with the edge values first."""
     gen = np.random.default_rng(rows + n + full)
     vals = to_t(ints_to_limbs(NONCANONICAL + EDGES), cuda_device)

@@ -281,10 +281,9 @@ def test_wrapper_checks_operands_first():
 
 
 def test_executor_sums_are_fused():
-    """The AoS check step's three tests and the verifier's step add their
-    products through the fused wrapper (two calls for the quadratic
-    test's triples and pairs): four calls each, and K2 only for the
-    triples' e_x * e_y."""
+    """The verifier's step adds the products of its three tests through
+    the fused wrapper (two calls for the quadratic test's triples and
+    pairs): four calls, and K2 only for the triples' e_x * e_y."""
     gen = np.random.default_rng(8)
     b, n = 3, 16
     e, r = (to_t(rand_limbs(gen, (b, n))) for _ in range(2))
@@ -293,8 +292,8 @@ def test_executor_sums_are_fused():
     tri = torch.tensor([[0, 1, 2], [1, 1, 0], [2, 0, 1]])
     pair = torch.tensor([[0, 1], [2, 2], [1, 0]])
     tfm.reset_counts()
-    got = tex._check_terms_aos(*accs, e, r, code_rs, tri, tri_r, pair,
-                               pair_r)
+    got = tex._verify_terms(*accs, e, r, code_rs, tri, tri_r, pair,
+                            pair_r)
     assert tfm.PLAIN_CALLS["masked_mulsum_aos"]["cpu"] == 4
     assert tfm.PLAIN_CALLS["mulmod"]["cpu"] == 1
     # against the JAX composition of the same sums

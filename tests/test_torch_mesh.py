@@ -12,6 +12,7 @@ JAX is imported only where the reference is used, so on the card:
     python -m pytest tests/test_torch_mesh.py -m cuda --noconftest -q
 """
 
+import functools
 import os
 
 import numpy as np
@@ -52,25 +53,34 @@ def _same(got, want):
 
 # ---- the coset encode ----------------------------------------------------
 
-@pytest.mark.parametrize("planar", [False, True], ids=["aos", "planar"])
+@functools.lru_cache(maxsize=None)
+def _jax_codec():
+    from ligero_prover_tpu.ops import ntt as jntt
+    return jntt, jntt.RSCodec(K, N)
+
+
+@pytest.mark.parametrize("ref", ["jax", "port"])
 @pytest.mark.parametrize("width_2k", [False, True], ids=["k", "2k"])
 @pytest.mark.parametrize("D", [1, 2, 4, 8])
-def test_coset_encode_matches_single_device(monkeypatch, D, width_2k,
-                                            planar):
+def test_coset_encode_matches_single_device(D, width_2k, ref):
     """Shard d's columns, interleaved back (column d + D*t from shard d's
-    column t), are the single-device encode limb for limb: at D = 8 both
-    widths fold (m = 128 < k), at D = 1 the 2k rows tile."""
-    monkeypatch.setattr(ntt, "USE_PLANAR", planar)
+    column t), are the single-device encode limb for limb, the JAX
+    package's (``encode_rows_cg``) and the port's: at D = 8 both widths
+    fold (m = 128 < k), at D = 1 the 2k rows tile."""
     ex = ShardedExecutor(K, N, _cpu_mesh(D), B)
-    single = TorchExecutor(K, N, B, "cpu")
-    assert ex.use_planar is single.use_planar is planar
     w = 2 * K if width_2k else K
     gen = np.random.default_rng(D + 10 * width_2k)
-    rows = to_t(rand_limbs(gen, (3, w)))
-    dom = single.codec.dom_2k if width_2k else single.codec.dom_k
-    want = ntt.encode_rows(rows, dom, single.codec.dom_n, N, planar)
+    x = rand_limbs(gen, (3, w))
+    rows = to_t(x)
+    if ref == "jax":
+        jntt, jc = _jax_codec()
+        want = to_t(np.asarray(jntt.encode_rows_cg(
+            x, jc.dom_2k if width_2k else jc.dom_k, jc.dom_n, N)))
+    else:
+        codec = TorchExecutor(K, N, B, "cpu").codec
+        want = (codec.encode_2k if width_2k else codec.encode)(rows)
     coeffs = ex._coeffs(rows, width_2k)
-    parts = [ex._aos(ex._encode(coeffs, d)) for d in range(D)]
+    parts = [ex._encode(coeffs, d).movedim(0, -1) for d in range(D)]
     assert all(p.shape == (3, N // D, 8) for p in parts)
     got = torch.stack(parts, dim=2).flatten(1, 2)
     assert torch.equal(got, want)
@@ -82,16 +92,16 @@ def test_coset_domain_is_a_power_of_the_codeword_root():
     w_k, _, w_n = F.generate_omegas(K, N)
     assert w_k != pow(w_n, 4, F.MODULUS)
     dom = ntt.coset_tables(K, N, 4, 1)["dom"]
-    assert torch.equal(dom["cg_fwd"], ntt.build_domain_tables(
-        K, pow(w_n, 4, F.MODULUS))["cg_fwd"])
-    assert not torch.equal(dom["cg_fwd"],
-                           ntt.build_domain_tables(K, w_k)["cg_fwd"])
+    assert torch.equal(dom["cg_fwd_pl"], ntt.build_domain_tables(
+        K, pow(w_n, 4, F.MODULUS))["cg_fwd_pl"])
+    assert not torch.equal(dom["cg_fwd_pl"],
+                           ntt.build_domain_tables(K, w_k)["cg_fwd_pl"])
 
 
 def test_coset_twist_table():
     """Position pos of shard d's twist table for width w holds
-    w^-1 * w_n^(d * bitrev_w(pos)) in Montgomery form, as (w, 8) and as
-    (8, w) planes."""
+    w^-1 * w_n^(d * bitrev_w(pos)) in Montgomery form, as contiguous
+    (8, w) limb planes."""
     p, D, d = F.MODULUS, 8, 5
     w_n = F.generate_omegas(K, N)[2]
     tabs = ntt.coset_tables(K, N, D, d)
@@ -100,8 +110,8 @@ def test_coset_twist_table():
         rev = ntt._bitrev(w)
         want = [pow(w, p - 2, p) * pow(w_n, d * int(rev[pos]), p) * F.R % p
                 for pos in range(w)]
-        assert limbs_to_ints(to_np(tabs["twist_aos"][w])) == want
-        assert torch.equal(tabs["twist"][w], tabs["twist_aos"][w].T)
+        assert tabs["twist"][w].is_contiguous()
+        assert limbs_to_ints(to_np(tabs["twist"][w].T)) == want
 
 
 # ---- the tiled KE mode ---------------------------------------------------

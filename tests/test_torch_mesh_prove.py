@@ -1,10 +1,10 @@
 """Whole proofs of the column-sharded prover at k=256 on the CPU: the JAX
 ``ShardedExecutor`` on 8 virtual devices, the JAX single-device prover,
-the port's ``prove(..., mesh=make_mesh(["cpu"] * D))`` for D = 2, 4, 8
-(the AoS configuration, the CPU default; and the planar one at D = 4) and
-the port's single-device prover give the same proof bytes at one encoding
-seed and proof timestamp, and the port's verifier accepts the sharded
-proof."""
+the port's ``prove(..., mesh=make_mesh(["cpu"] * D))`` for D = 1, 2, 4, 8
+(a mesh of one shard encodes by the coset path over the whole codeword)
+and the port's single-device prover give the same proof bytes at one
+encoding seed and proof timestamp, and the port's verifier accepts the
+sharded proof."""
 
 import jax
 import pytest
@@ -12,7 +12,6 @@ import pytest
 from ligero_prover_tpu import prover as jprover
 from ligero_prover_tpu.parallel.mesh import make_mesh as j_make_mesh
 from ligero_prover_tpu_torch import prover as tprover, verifier as tverifier
-from ligero_prover_tpu_torch.ops import ntt
 from ligero_prover_tpu_torch.parallel.mesh import make_mesh
 
 from _torch_prove_common import GUESTS, SEED, SYNTHETIC, make_env, \
@@ -52,7 +51,7 @@ def _port_sharded(env, name, D, monkeypatch):
                          encoding_seed=SEED)
 
 
-@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("D", [2, 4, 8, 1])
 @pytest.mark.parametrize("name", list(PROGRAMS))
 def test_sharded_proof_bytes(env, proofs, name, D, monkeypatch):
     """JAX sharded == JAX single == port sharded == port single."""
@@ -64,14 +63,6 @@ def test_sharded_proof_bytes(env, proofs, name, D, monkeypatch):
     assert (got.num_rows, got.num_linear, got.num_quadratic) == \
         (t.num_rows, t.num_linear, t.num_quadratic)
     assert got.proof == t.proof
-
-
-@pytest.mark.parametrize("name", list(PROGRAMS))
-def test_sharded_planar_proof_bytes(env, proofs, name, monkeypatch):
-    """The planar configuration's sharded proof (D = 4) is the same."""
-    monkeypatch.setattr(ntt, "USE_PLANAR", True)
-    got = _port_sharded(env, name, 4, monkeypatch)
-    assert got.proof == proofs[0][name][1].proof
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))

@@ -8,9 +8,9 @@ exact equality throughout:
   ``convert.mxu_tables_from_numpy``;
 * ``encode_rows_mxu`` against the JAX ``encode_rows_mxu(use_pallas=False)``,
   the port's own butterfly encode and ``field.golden``;
-* the commit, check and open bodies with the engine on, in the planar and
-  the AoS configuration, against the JAX bodies called eagerly with
-  ``use_mxu=True`` as ``tests/test_mxu_ntt.py`` calls them."""
+* the commit, check and open bodies with the engine on, on two seeds'
+  inputs, against the JAX bodies called eagerly with ``use_mxu=True`` as
+  ``tests/test_mxu_ntt.py`` calls them."""
 
 import numpy as np
 import pytest
@@ -107,7 +107,7 @@ def test_encode_matches_reference_and_butterflies(name):
     np.testing.assert_array_equal(to_np(core.movedim(0, -1)), want)
     tc = tntt.RSCodec(n // 4, n, "cpu")
     dom = tc.dom_k if w == n // 4 else tc.dom_2k
-    cg = tntt.encode_rows_cg(to_t(rows), dom, tc.dom_n, n)
+    cg = tntt.encode_rows_cg_planar(to_t(rows), dom, tc.dom_n, n)
     np.testing.assert_array_equal(got, to_np(cg))
 
 
@@ -166,9 +166,9 @@ def test_use_mxu_selects_the_engine(monkeypatch, flag, cpu, cuda):
 
 # ---- executor bodies -----------------------------------------------------
 
-@pytest.fixture(scope="module")
-def body_inputs():
-    gen = np.random.default_rng(3)
+@pytest.fixture(scope="module", params=[3, 13], ids=["seed3", "seed13"])
+def body_inputs(request):
+    gen = np.random.default_rng(request.param)
     tri_r, pair_r = rand_limbs(gen, (4,)), rand_limbs(gen, (4,))
     tri_r[2:] = 0                       # padded entries carry zero scalars
     pair_r[1:] = 0
@@ -211,13 +211,12 @@ def reference_bodies(codecs, body_inputs):
     return out
 
 
-@pytest.fixture(scope="module", params=["planar", "aos"])
-def mxu_executor(request):
+@pytest.fixture(scope="module")
+def mxu_executor():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tntt, "USE_MXU", True)
-        mp.setattr(tntt, "USE_PLANAR", request.param == "planar")
         ex = tex.TorchExecutor(K, N, B, "cpu")
-    assert ex.use_mxu and ex.use_planar is (request.param == "planar")
+    assert ex.use_mxu
     return ex
 
 
@@ -257,9 +256,7 @@ def test_mxu_steps_equal_butterfly_steps(mxu_executor, body_inputs):
     """The two engines are interchangeable mid-protocol: every step of an
     executor with the engine on equals the same step with it off."""
     d = body_inputs
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tntt, "USE_PLANAR", mxu_executor.use_planar)
-        off = tex.TorchExecutor(K, N, B, "cpu")
+    off = tex.TorchExecutor(K, N, B, "cpu")
     assert not off.use_mxu
     outs = [(ex.commit_step(convert.sha_from_numpy(d["sha"]), d["rows"], B),
              ex.check_step(convert.accs_from_numpy(d["accs"]), d["rows"],

@@ -2,45 +2,36 @@
 ``ops.ntt.USE_MXU = True`` the port's proofs (plain versions of the KR
 kernels, on the CPU) are byte-identical to the JAX prover's at k=256 for
 the vbn254fr guest (batch rows only) and a guest with witness rows (linear
-and quadratic callback rows, so a second encode per flush runs), in the
-planar and the AoS configuration, and the JAX verifier accepts them."""
+and quadratic callback rows, so a second encode per flush runs), each also
+at 5 rows a flush, and the JAX verifier accepts them."""
 
 import pytest
 
 from ligero_prover_tpu_torch.ops import mxu_renorm as tmr
 from ligero_prover_tpu_torch.ops import ntt as tntt
 
-from _torch_prove_common import (GUESTS, check_cross_verify, check_identical,
-                                 make_env, make_proofs)
+from _torch_prove_common import (GUESTS, ODD, check_cross_verify,
+                                 check_identical, make_env, make_proofs, odd)
 
-PROGRAMS = {"vbn254fr_make_wat3": GUESTS["vbn254fr_make_wat3"],
-            "ecdsa_p256": GUESTS["ecdsa_p256"]}
+NAMES = ["vbn254fr_make_wat3", "ecdsa_p256"]
+PROGRAMS = {name: GUESTS[name] for name in NAMES} | odd(GUESTS, NAMES)
 
 
-@pytest.fixture(scope="module", params=["planar", "aos"])
-def env(request):
+@pytest.fixture(scope="module")
+def env():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tntt, "USE_MXU", True)
-        mp.setattr(tntt, "USE_PLANAR", request.param == "planar")
         env = make_env()
-    assert env["tex"].use_mxu
-    assert env["tex"].use_planar is (request.param == "planar")
+    assert env["tex"].use_mxu and env["tex" + ODD].use_mxu
     return env
 
 
 @pytest.fixture(scope="module")
-def proofs(env, reference_proofs):
-    """The port's proofs in this configuration beside the JAX prover's,
-    which are made once for both configurations."""
+def proofs(env):
     tmr.reset_counts()
-    out = make_proofs(env, PROGRAMS, reference_proofs)
+    out = make_proofs(env, PROGRAMS)
     assert tmr.PLAIN_CALLS["renorm_final"]["cpu"] > 0
     return out
-
-
-@pytest.fixture(scope="module")
-def reference_proofs():
-    return {}
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))

@@ -1,8 +1,8 @@
 """Whole-slice parity on the synthetic programs of ``test_protocol.py``:
 the port's proofs are byte-identical to the JAX prover's at k=256 (fixed
-encoding seed and proof timestamp), each package's verifier accepts the
-other's proofs, and the port's verifier rejects a tampered proof and a
-wrong program."""
+encoding seed and proof timestamp; ``simple`` also at 5 rows a flush),
+each package's verifier accepts the other's proofs, and the port's
+verifier rejects a tampered proof and a wrong program."""
 
 import gzip
 
@@ -12,8 +12,10 @@ from ligero_prover_tpu_torch import verifier as tverifier
 from ligero_prover_tpu_torch.proto import ligero_proof_pb2 as pb
 
 from _torch_prove_common import (SYNTHETIC, check_cross_verify,
-                                 check_identical, make_env, make_proofs)
+                                 check_identical, make_env, make_proofs, odd)
 from test_protocol import simple_program
+
+PROGRAMS = SYNTHETIC | odd(SYNTHETIC, ["simple"])
 
 
 @pytest.fixture(scope="module")
@@ -23,17 +25,17 @@ def env():
 
 @pytest.fixture(scope="module")
 def proofs(env):
-    return make_proofs(env, SYNTHETIC)
+    return make_proofs(env, PROGRAMS)
 
 
-@pytest.mark.parametrize("name", list(SYNTHETIC))
+@pytest.mark.parametrize("name", list(PROGRAMS))
 def test_proof_bytes_identical(proofs, name):
     check_identical(proofs, name)
 
 
-@pytest.mark.parametrize("name", list(SYNTHETIC))
+@pytest.mark.parametrize("name", list(PROGRAMS))
 def test_cross_verify(env, proofs, name):
-    check_cross_verify(env, proofs, SYNTHETIC, name)
+    check_cross_verify(env, proofs, PROGRAMS, name)
 
 
 def test_tampered_proof_rejected(env, proofs):
