@@ -31,12 +31,15 @@ import numpy as np
 import torch
 
 from ...field import bn254 as F
-from ...field.limbs import ints_to_limbs
+from ...field.limbs import int_to_limbs, ints_to_limbs
 from ...ops import fieldops as fo
+from ...utils.timer import count
 from ..values import WasmTrap, u32, u64
 
 MAX_VARIABLES = 512
 NLIMB = 8
+# a 32-byte lane whose top limb is below this is below p
+P_TOP = F.MODULUS >> 224
 
 
 class Arena:
@@ -120,6 +123,22 @@ class Arena:
         return rows
 
 
+def _lanes_be(raw: bytes, lanes: int, length: int) -> np.ndarray:
+    """`lanes` big-endian values of `length` <= 32 bytes each as (lanes,
+    8) limbs mod p: each lane byte-reversed into 32 little-endian bytes;
+    only a 32-byte lane can reach p, and those that do are reduced as
+    Python ints."""
+    le = np.zeros((lanes, 32), np.uint8)
+    le[:, :length] = np.frombuffer(raw, np.uint8).reshape(
+        lanes, length)[:, ::-1]
+    limbs = le.view("<u4")
+    for i in np.flatnonzero(limbs[:, NLIMB - 1] >= P_TOP):
+        v = int.from_bytes(le[i].tobytes(), "little")
+        if v >= F.MODULUS:
+            limbs[i] = int_to_limbs(v % F.MODULUS)
+    return limbs
+
+
 class VBn254frModule:
     name = "vbn254fr"
 
@@ -185,22 +204,34 @@ class VBn254frModule:
             return [None] * len(rows)
         return list(rows)
 
-    def _make_row(self, values: list[int]) -> np.ndarray:
-        """Build a full k-wide limb row: values, zeros to l, encoding
-        randomness tail [l, k) (``nonbatch_context.hpp:497-505``)."""
-        if len(values) > self.l:
+    def _new_row(self, n: int) -> np.ndarray:
+        """A zero k-wide limb row for `n` values; traps when they do not
+        fit in [0, l)."""
+        if n > self.l:
             raise WasmTrap("vbn254fr: too many elements for a batch row")
-        row = np.zeros((self.k, NLIMB), np.uint32)
-        ints_to_limbs([v % F.MODULUS for v in values], row[:len(values)])
+        return np.zeros((self.k, NLIMB), np.uint32)
+
+    def _set_and_init(self, slot: int, row: np.ndarray):
+        """Fill the row's encoding randomness tail [l, k), set the slot to
+        it and commit it (``nonbatch_context.hpp:497-505``)."""
         tail = self.zk.batch_encoding_tail()
         if tail is not None:
-            ints_to_limbs(tail, row[self.l:self.l + len(tail)])
-        return row
-
-    def _set_and_init(self, slot: int, values: list[int]):
-        row = self._make_row(values)
+            row[self.l:] = tail
         self.arena.set_row(slot, row)
         self.zk.on_batch_init(row)
+
+    def _set_ints(self, slot: int, values: list[int]):
+        row = self._new_row(len(values))
+        ints_to_limbs([v % F.MODULUS for v in values], row[:len(values)])
+        self._set_and_init(slot, row)
+
+    def _set_scalar(self, slot: int, value: int):
+        """Every lane of [0, l) set to `value` mod p: its limbs taken once
+        and broadcast."""
+        row = self._new_row(self.l)
+        row[:self.l] = int_to_limbs(value % F.MODULUS)
+        count("vbn254fr.broadcast_rows")
+        self._set_and_init(slot, row)
 
     # -- alloc / free ------------------------------------------------------
 
@@ -225,13 +256,15 @@ class VBn254frModule:
         ui_ptr = self._pop_u32()
         fp_addr = self._pop_u32()
         raw = self.ctx.memory.load_bytes(ui_ptr, 4 * length)
-        vals = list(np.frombuffer(raw, np.uint32).astype(object))
-        self._set_and_init(self._load(fp_addr), vals)
+        slot = self._load(fp_addr)
+        row = self._new_row(length)
+        row[:length, 0] = np.frombuffer(raw, "<u4")    # below p
+        self._set_and_init(slot, row)
 
     def vbn254fr_set_ui_scalar(self):
         ui = self._pop_u32()
         fp_addr = self._pop_u32()
-        self._set_and_init(self._load(fp_addr), [ui] * self.l)
+        self._set_scalar(self._load(fp_addr), ui)
 
     def _read_cstr(self, addr: int) -> str:
         mem = self.ctx.memory
@@ -260,7 +293,7 @@ class VBn254frModule:
             except ValueError:
                 err = 0xFFFFFFFF
                 vals.append(0)
-        self._set_and_init(self._load(fp_addr), vals)
+        self._set_ints(self._load(fp_addr), vals)
         self.ctx.push(u32(err))
 
     def vbn254fr_set_str_scalar(self):
@@ -272,19 +305,25 @@ class VBn254frModule:
             v = self._parse_int(self._read_cstr(str_addr), base)
         except ValueError:
             err, v = 0xFFFFFFFF, 0
-        self._set_and_init(self._load(fp_addr), [v] * self.l)
+        self._set_scalar(self._load(fp_addr), v)
         self.ctx.push(u32(err))
 
     def vbn254fr_set_bytes(self):
-        count = self._pop_u64()
+        lanes = self._pop_u64()
         length = self._pop_u64()
         bytes_ptr = self._pop_u32()
         fp_addr = self._pop_u32()
-        vals = []
-        for i in range(count):
-            raw = self.ctx.memory.load_bytes(bytes_ptr + length * i, length)
-            vals.append(int.from_bytes(raw, "big"))
-        self._set_and_init(self._load(fp_addr), vals)
+        # one load traps exactly when a lane's would
+        raw = (self.ctx.memory.load_bytes(bytes_ptr, length * lanes)
+               if lanes else b"")
+        slot = self._load(fp_addr)
+        if length > 32:
+            self._set_ints(slot, [int.from_bytes(raw[i:i + length], "big")
+                                  for i in range(0, len(raw), length)])
+            return
+        row = self._new_row(lanes)
+        row[:lanes] = _lanes_be(raw, lanes, length)
+        self._set_and_init(slot, row)
 
     def vbn254fr_set_bytes_scalar(self):
         length = self._pop_u64()
@@ -292,7 +331,7 @@ class VBn254frModule:
         fp_addr = self._pop_u32()
         v = int.from_bytes(self.ctx.memory.load_bytes(bytes_ptr, length),
                            "big")
-        self._set_and_init(self._load(fp_addr), [v] * self.l)
+        self._set_scalar(self._load(fp_addr), v)
 
     def vbn254fr_constant_set_str(self):
         base = self._pop_u32()

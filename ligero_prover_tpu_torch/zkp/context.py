@@ -19,11 +19,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..field import bn254 as F
 from ..field.limbs import ints_to_limbs
 from .backend import Backend
 from .witness import (STAGE1_POLICY, STAGE2_POLICY, VERIFIER_POLICY,
-                      RandomPolicy)
+                      RandomPolicy, generate_randoms)
 from .executor import TorchExecutor, NLIMB
 from ..utils.timer import count, span
 from ..params import NUM_CODE_TEST, NUM_QUADRATIC_TEST
@@ -76,15 +75,16 @@ class _ContextBase:
 
     # -- vbn254fr batch-row support (``nonbatch_context.hpp:497-553``) -----
 
-    def batch_encoding_tail(self) -> list[int] | None:
-        """Fresh encoding randomness for a batch row's [l, k) tail, drawn
-        from the same engine as witness-row padding; None when the policy
-        pads zeros (verifier)."""
+    def batch_encoding_tail(self) -> np.ndarray | None:
+        """Fresh encoding randomness for a batch row's [l, k) tail as (k -
+        l, 8) limbs, drawn as one block from the same engine as witness-row
+        padding (the draws of k - l ``generate_random`` calls); None when
+        the policy pads zeros (verifier)."""
         m = self.backend.manager
         if not m.policy.pad_encoding_random:
             return None
-        return [F.generate_random(m.encoding_random_engine)
-                for _ in range(self.k - self.l)]
+        return ints_to_limbs(
+            generate_randoms(m.encoding_random_engine, self.k - self.l))
 
 
 def _to_limbs(row: list[int], width: int) -> np.ndarray:
